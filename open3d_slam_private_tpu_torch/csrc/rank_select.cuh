@@ -1,5 +1,6 @@
-// The per-row rank + first-minimum select shared by K2 (gather_select.cu)
-// and K4 (rank_select.cu).
+// The per-row rank + first-minimum select of K4 (rank_select.cu). Its
+// kById contract is K2's; K2 (gather_select.cu) now ranks a row's grouped
+// queries from shared memory instead and no longer includes this header.
 //
 // A row is cap candidates of 8 32-bit words: x, y, z, id bits, nx, ny, nz, 0.
 // One warp ranks one row: lane l takes slots l, l+32, ..., reading each

@@ -2,7 +2,8 @@
 
 K1 (knn = 1) replaces ``pair_gn_step_folded``
 (``open3d_slam_private_tpu/kernels/pair_gn_pallas.py:261``); its CUDA kernel
-is ``csrc/pair_gn.cu``. K3 (K <= 8 pairs per point) replaces ``pair_gn_step``
+is ``csrc/pair_gn.cu`` (one launch a call, its output the full 6 x 6 A, b
+and the three sums, unpacked as views). K3 (K <= 8 pairs per point) replaces ``pair_gn_step``
 (``pair_gn_pallas.py:136``); its CUDA kernel is ``csrc/pair_gn_k.cu``.
 :func:`pair_gn_plain` and :func:`pair_gn_k_plain` are the same functions in
 plain PyTorch. :func:`pair_gn` and :func:`pair_gn_k` run the plain version
@@ -24,12 +25,15 @@ import torch
 
 from open3d_slam_private_tpu_torch.kernels import _build
 
-N_OUT = 31
+N_OUT = 31  # the plain version's and K3's sums: 21 upper-triangle A, b, sum w, sum w r^2, sum w, n ok
+K1_OUT = 45  # K1's output row: the full 6 x 6 A, b, sum w, sum w r^2, n ok
 _THREADS = 256
+_K1_TILE = 512  # points a K1 tile (csrc/pair_gn.cu kTile)
+_K1_BLOCKS = 264  # K1's grid target: 2 blocks on each of the H100's 132 SMs
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pair_gn_launch(reading, pair_xyz, pair_nrm, valid, T, tau, max_d2, B, N,
-#                nblocks, partial, out, stream)
-_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P]
+#                nblocks, tiles_per_block, partial, counter, out, stream)
+_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P, _P]
 # pair_gn_k_launch(reading, pair_xyz, pair_nrm, valid, T, tau, max_d2, B, N, K,
 #                  nblocks, partial, out, stream)
 _LAUNCH_K_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P]
@@ -43,7 +47,8 @@ _SYM_ON: dict = {}  # device -> the index tensor above on that device
 
 
 def unpack(out: torch.Tensor):
-    """``[B, 31]`` sums -> (A [B, 6, 6], b [B, 6], sum_w, sum_wr2, n_ok)."""
+    """``[B, 31]`` sums -> (A [B, 6, 6], b [B, 6], sum_w, sum_wr2, n_ok)
+    (an index gather builds A from its upper triangle)."""
     idx = _SYM_ON.get(out.device)
     if idx is None:
         idx = _SYM_ON[out.device] = torch.tensor(_SYM, device=out.device)
@@ -97,45 +102,106 @@ def pair_gn_plain(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float)
 
 
 def num_blocks(B: int, N: int) -> int:
-    """Blocks per problem: one point per thread for small batches, about a
-    thousand blocks in all for large ones (a function of the shape only,
-    so the summation order is fixed for a given shape)."""
+    """K3's blocks per problem: one point per thread for small batches,
+    about a thousand blocks in all for large ones (a function of the shape
+    only, so the summation order is fixed for a given shape)."""
     return max(1, min(math.ceil(N / _THREADS), math.ceil(1024 / B)))
+
+
+def k1_grid(B: int, N: int):
+    """K1's (blocks per problem, tiles per block): as many 512-point tiles
+    a block as keep the grid near 2 blocks an SM, at least one. A function
+    of the shape only, so the summation order is fixed for a given shape."""
+    tiles = -(-N // _K1_TILE)
+    per_block = max(1, -(-tiles * B // _K1_BLOCKS))
+    return max(1, -(-tiles // per_block)), per_block
+
+
+def unpack_k1(out: torch.Tensor):
+    """K1's fresh ``[B, 45]`` rows -> views (A [B, 6, 6], b [B, 6], sum_w,
+    sum_wr2, n_ok); no copy, no launch (``as_strided``: the cheapest view on
+    the host)."""
+    B, view = out.shape[0], out.as_strided
+    return (view((B, 6, 6), (K1_OUT, 6, 1)), view((B, 6), (K1_OUT, 1), 36),
+            view((B,), (K1_OUT,), 42), view((B,), (K1_OUT,), 43), view((B,), (K1_OUT,), 44))
+
+
+_K1_COUNTER: dict = {}  # device -> int32 arrival counters a problem, zero between calls
+_K1_PARTIAL: dict = {}  # device -> float32 partial rows of the blocks
+
+
+def _k1_buffers(dev, B: int, n_partial: int):
+    """K1's per-device scratch, grown and never shrunk: the counters (the
+    kernel's last block resets its own) and the blocks' partial rows. Calls
+    on one stream use them in turn."""
+    counter = _K1_COUNTER.get(dev)
+    if counter is None or counter.numel() < B:
+        counter = _K1_COUNTER[dev] = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+    partial = _K1_PARTIAL.get(dev)
+    if partial is None or partial.numel() < n_partial:
+        partial = _K1_PARTIAL[dev] = torch.empty(max(n_partial, 1 << 14), dtype=torch.float32,
+                                                 device=dev)
+    return counter, partial
+
+
+_F32 = torch.float32
+
+
+def _k1_args_ok(dev, reading, pair_xyz, pair_normals, valid, T, tau) -> bool:
+    """One pass of cheap checks; the caller re-checks one by one to name
+    what is wrong."""
+    B, N = reading.shape[0], reading.shape[1]
+    shape = reading.shape
+    return (
+        reading.dim() == 3 and shape[2] == 3 and pair_xyz.shape == shape
+        and pair_normals.shape == shape and valid.shape == shape[:2] and T.shape == (B, 4, 4)
+        and tau.shape == (B,)
+        and reading.dtype is _F32 and pair_xyz.dtype is _F32 and pair_normals.dtype is _F32
+        and T.dtype is _F32 and tau.dtype is _F32
+        and (valid.dtype is torch.bool or valid.dtype is torch.uint8)
+        and pair_xyz.device == dev and pair_normals.device == dev and valid.device == dev
+        and T.device == dev and tau.device == dev
+        and reading.is_contiguous() and pair_xyz.is_contiguous() and pair_normals.is_contiguous()
+        and valid.is_contiguous() and T.is_contiguous() and tau.is_contiguous()
+    )
 
 
 def pair_gn(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
     """K1 on ``reading / pair_xyz / pair_normals [B, N, 3]`` float32,
     ``valid [B, N]`` bool or uint8, ``T [B, 4, 4]``, ``tau [B]`` float32 and
     a scalar ``max_d2`` -> ``(A [B, 6, 6], b [B, 6], sum_w [B], sum_wr2 [B],
-    n_ok [B])``. CPU tensors take :func:`pair_gn_plain`; CUDA tensors launch
-    the kernel (counted in ``pair_gn.launches``) or raise."""
+    n_ok [B])`` (views of one ``[B, 45]`` tensor). CPU tensors take
+    :func:`pair_gn_plain`; CUDA tensors launch the kernel (counted in
+    ``pair_gn.launches``) or raise. One launch a call."""
     dev = reading.device
     if dev.type == "cpu":
         return pair_gn_plain(reading, pair_xyz, pair_normals, valid, T, tau, max_d2)
     if dev.type != "cuda":
         raise ValueError(f"pair_gn: unsupported device {dev}")
     B, N = reading.shape[0], reading.shape[1]
-    f32 = (torch.float32,)
-    _build.check_tensor("reading", reading, (B, N, 3), f32, dev)
-    _build.check_tensor("pair_xyz", pair_xyz, (B, N, 3), f32, dev)
-    _build.check_tensor("pair_normals", pair_normals, (B, N, 3), f32, dev)
-    _build.check_tensor("valid", valid, (B, N), (torch.bool, torch.uint8), dev)
-    _build.check_tensor("T", T, (B, 4, 4), f32, dev)
-    _build.check_tensor("tau", tau, (B,), f32, dev)
-    nblocks = num_blocks(B, N)
-    partial = torch.empty((B, nblocks, N_OUT), dtype=torch.float32, device=dev)
-    out = torch.empty((B, N_OUT), dtype=torch.float32, device=dev)
+    if not _k1_args_ok(dev, reading, pair_xyz, pair_normals, valid, T, tau):
+        f32 = (_F32,)
+        _build.check_tensor("reading", reading, (B, N, 3), f32, dev)
+        _build.check_tensor("pair_xyz", pair_xyz, (B, N, 3), f32, dev)
+        _build.check_tensor("pair_normals", pair_normals, (B, N, 3), f32, dev)
+        _build.check_tensor("valid", valid, (B, N), (torch.bool, torch.uint8), dev)
+        _build.check_tensor("T", T, (B, 4, 4), f32, dev)
+        _build.check_tensor("tau", tau, (B,), f32, dev)
+    nblocks, per_block = k1_grid(B, N)
+    counter, partial = _k1_buffers(dev, B, B * nblocks * 32)
+    out = torch.empty((B, K1_OUT), dtype=_F32, device=dev)
     lib = _build.load("pair_gn", _LAUNCH_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pair_gn_launch(
-            reading.data_ptr(), pair_xyz.data_ptr(), pair_normals.data_ptr(),
-            valid.view(torch.uint8).data_ptr(), T.data_ptr(), tau.data_ptr(),
-            float(max_d2), B, N, nblocks, partial.data_ptr(), out.data_ptr(), stream,
-        )
+    args = (reading.data_ptr(), pair_xyz.data_ptr(), pair_normals.data_ptr(), valid.data_ptr(),
+            T.data_ptr(), tau.data_ptr(), float(max_d2), B, N, nblocks, per_block,
+            partial.data_ptr(), counter.data_ptr(), out.data_ptr())
+    if dev.index == torch.cuda.current_device():
+        rc = lib.pair_gn_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.pair_gn_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check_launch(lib, "pair_gn", rc)
     pair_gn.launches += 1
-    return unpack(out)
+    return unpack_k1(out)
 
 
 pair_gn.launches = 0

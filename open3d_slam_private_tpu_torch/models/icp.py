@@ -193,13 +193,16 @@ class ICPResult:
 
 
 def build_reference(
-    reference: PointBatch, cfg: ICPConfig, centroid: Optional[torch.Tensor] = None
+    reference: PointBatch, cfg: ICPConfig, centroid: Optional[torch.Tensor] = None,
+    const_size: bool = False,
 ) -> ICPReference:
     """Centre the reference at its centroid and build its matcher
     structure: for the grid matcher a cell list of side ``max_match_dist``,
     for the hash matcher a hash grid of cell ``2 * max_match_dist``, each
     widened by ``candidate_slack`` when the rounds cache candidates. The
-    brute matchers build none."""
+    brute matchers build none. ``const_size``: the JAX twin builds (and
+    queries) the structure inside a jitted step of a static config, where
+    the cell size is a compile-time constant (``grid_hash.recip``)."""
     check_config(cfg)
     c = masked_centroid(reference) if centroid is None else centroid
     centered = dataclasses.replace(
@@ -216,6 +219,7 @@ def build_reference(
             table_size=cfg.grid_table_size,
             bucket_cap=cfg.grid_bucket_cap,
             normals=centered.normals,
+            const_size=const_size,
         )
     elif cfg.matcher == "grid":
         grid = cell_mod.build_cell_list(
@@ -225,6 +229,7 @@ def build_reference(
             table_size=cfg.grid_table_size,
             list_cap=cfg.grid_bucket_cap,
             normals=centered.normals,
+            const_size=const_size,
         )
     return ICPReference(cloud=centered, centroid=c, grid=grid)
 
@@ -562,7 +567,7 @@ def register_pair(reading: PointBatch, reference: PointBatch, init_T: torch.Tens
     """One-shot registration of a reading (``xyz [N, 3]``) against a
     reference cloud (``[M, 3]``) from ``init_T [4, 4]``: build the reference,
     then :func:`icp_single`."""
-    return icp_single(reading, build_reference(reference, cfg), init_T, cfg)
+    return icp_single(reading, build_reference(reference, cfg, const_size=True), init_T, cfg)
 
 
 def register_batch(readings: PointBatch, references: PointBatch, init_Ts: torch.Tensor,
@@ -571,8 +576,8 @@ def register_batch(readings: PointBatch, references: PointBatch, init_Ts: torch.
     against reference b from ``init_Ts[b]``. Each problem builds its own
     reference and runs alone."""
     out = [
-        icp_single(_problem(readings, b), build_reference(_problem(references, b), cfg),
-                   init_Ts[b], cfg)
+        icp_single(_problem(readings, b),
+                   build_reference(_problem(references, b), cfg, const_size=True), init_Ts[b], cfg)
         for b in range(init_Ts.shape[0])
     ]
     return ICPResult(**{f.name: torch.stack([getattr(r, f.name) for r in out])
@@ -584,7 +589,7 @@ def register_hypotheses(reading: PointBatch, reference: PointBatch, init_Ts: tor
     """Multi-hypothesis registration: one reading (``xyz [N, 3]``) and one
     reference, ``init_Ts [H, 4, 4]`` seeds, run as one :func:`icp_batch` of
     H problems over the reading expanded (not copied) to ``[H, N, 3]``."""
-    ref = build_reference(reference, cfg)
+    ref = build_reference(reference, cfg, const_size=True)
     H = init_Ts.shape[0]
     readings = PointBatch(
         xyz=reading.xyz.expand(H, *reading.xyz.shape),

@@ -24,6 +24,7 @@ from open3d_slam_private_tpu_torch.ops.grid_hash import (
     floor_cells,
     match_from_candidates,
     payload_ids,
+    recip,
     run_ranks,
     scatter_payload,
     _CH,
@@ -36,11 +37,15 @@ _OFFSETS = [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1
 class CellList:
     """``table [T, C, 8]`` payload lists; ``cell_size`` = search radius
     (0-d float32); ``dropped``: eligible (cell, point) pairs that did not
-    fit in ``list_cap`` (0 means the lists are exact)."""
+    fit in ``list_cap`` (0 means the lists are exact); ``cell_inv``: the
+    reciprocal queries multiply by (``grid_hash.recip``) where the JAX twin
+    builds and queries the lists in one jitted step of a static config;
+    None: queries divide."""
 
     table: torch.Tensor
     cell_size: torch.Tensor
     dropped: torch.Tensor
+    cell_inv: Optional[torch.Tensor] = None
 
     @property
     def list_cap(self) -> int:
@@ -58,9 +63,13 @@ def build_cell_list(
     table_size: int = 1 << 16,
     list_cap: int = 64,
     normals: Optional[torch.Tensor] = None,
+    const_size: bool = False,
 ) -> CellList:
     """Point p is listed in cell c iff ``dist(p, box(c)) <= radius``; one
-    stable sort on the key ``hash << 13 | quantised centre distance``."""
+    stable sort on the key ``hash << 13 | quantised centre distance``.
+    ``const_size``: the radius is a compile-time constant of the JAX twin's
+    step, so cells come from its ``grid_hash.recip`` (and so do the lists'
+    queries)."""
     if table_size > (1 << 17):
         raise ValueError(
             "cell-list table_size is limited to 2^17 (the build's composite "
@@ -68,7 +77,8 @@ def build_cell_list(
         )
     dev = xyz.device
     r = f32(radius, dev)
-    cell = floor_cells(xyz, r)
+    inv = recip(r) if const_size else None
+    cell = floor_cells(xyz, r, inv)
     offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
     tgt = cell[:, None, :] + offsets[None, :, :]  # [M, 27, 3]
 
@@ -91,13 +101,14 @@ def build_cell_list(
     table = scatter_payload(table_size * list_cap, slot, s_pt, xyz, normals)
     dropped = ((s_h < table_size) & (rank >= list_cap)).sum(dtype=torch.int32)
     return CellList(
-        table=table[:-1].reshape(table_size, list_cap, _CH), cell_size=r, dropped=dropped
+        table=table[:-1].reshape(table_size, list_cap, _CH), cell_size=r, dropped=dropped,
+        cell_inv=inv,
     )
 
 
 def query_hash(cl: CellList, query_xyz: torch.Tensor) -> torch.Tensor:
     """Row index (cell hash) of each query ``[..., 3]`` -> ``[...]`` int32."""
-    return _cell_hash(floor_cells(query_xyz, cl.cell_size), cl.table_size)
+    return _cell_hash(floor_cells(query_xyz, cl.cell_size, cl.cell_inv), cl.table_size)
 
 
 def gather_cell_candidates(cl: CellList, query_xyz: torch.Tensor, query_mask: torch.Tensor):

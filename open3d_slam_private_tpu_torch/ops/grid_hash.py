@@ -44,10 +44,27 @@ def f32(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
-def floor_cells(xyz: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
-    """``floor(xyz / size)`` as int32, saturating like XLA's float->int
-    conversion (padded ``PAD_COORD`` rows would otherwise overflow)."""
-    f = torch.floor(xyz / size)
+def recip(size: torch.Tensor) -> torch.Tensor:
+    """The float32 ``1 / size`` that XLA multiplies by where it divides by a
+    compile-time constant ``size``. Inside the JAX twins' jitted steps with a
+    static config (``odometry.preprocess``, ``mapper.process_scan_for_matching``,
+    ``mapper.build_map_reference``, ``register_pair``) the voxel and cell
+    sizes are such constants, so ``x / 0.3`` runs as ``x * 3.3333333``: a
+    cell boundary then falls an ulp away from a true division's, once in
+    ~10^4 coordinates. Where the size is traced, XLA divides."""
+    return torch.ones_like(size) / size
+
+
+def cell_coords(xyz: torch.Tensor, size: torch.Tensor, inv=None) -> torch.Tensor:
+    """``xyz / size``, or ``xyz * inv`` where ``inv = recip(size)`` is given."""
+    return xyz / size if inv is None else xyz * inv
+
+
+def floor_cells(xyz: torch.Tensor, size: torch.Tensor, inv=None) -> torch.Tensor:
+    """``floor(cell_coords(xyz, size, inv))`` as int32, saturating like
+    XLA's float->int conversion (padded ``PAD_COORD`` rows would otherwise
+    overflow)."""
+    f = torch.floor(cell_coords(xyz, size, inv))
     return f.double().clamp(-2147483648.0, 2147483647.0).to(torch.int32)
 
 
@@ -115,11 +132,15 @@ def run_ranks(sorted_keys: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class GridHash:
-    """Built spatial hash: payload table ``[T, C, 8]`` + cell size."""
+    """Built spatial hash: payload table ``[T, C, 8]`` + cell size.
+    ``cell_inv``: the reciprocal queries multiply by (see :func:`recip`)
+    where the JAX twin builds and queries the grid in one jitted step of a
+    static config; None: queries divide."""
 
     table: torch.Tensor
     cell_size: torch.Tensor
     has_normals: bool = False
+    cell_inv: Optional[torch.Tensor] = None
 
     @property
     def bucket_cap(self) -> int:
@@ -152,11 +173,16 @@ def build_grid(
     table_size: int = 1 << 16,
     bucket_cap: int = 16,
     normals: Optional[torch.Tensor] = None,
+    const_size: bool = False,
 ) -> GridHash:
     """Hash ``xyz [M, 3]`` (mask-valid points only) into a GridHash; under
-    bucket overflow the lowest point indices win (stable sort)."""
+    bucket overflow the lowest point indices win (stable sort).
+    ``const_size``: the cell size is a compile-time constant of the JAX
+    twin's step, so cells come from its :func:`recip` (and so do the
+    grid's queries)."""
     cs = f32(cell_size, xyz.device)
-    hkey = _cell_hash(floor_cells(xyz, cs), table_size)
+    inv = recip(cs) if const_size else None
+    hkey = _cell_hash(floor_cells(xyz, cs, inv), table_size)
     hkey = torch.where(mask, hkey, table_size)
     sorted_keys, order = torch.sort(hkey, stable=True)
     rank = run_ranks(sorted_keys)
@@ -167,13 +193,14 @@ def build_grid(
         table=table[:-1].reshape(table_size, bucket_cap, _CH),
         cell_size=cs,
         has_normals=normals is not None,
+        cell_inv=inv,
     )
 
 
 def _block_hashes(grid: GridHash, query_xyz: torch.Tensor):
     """The 8 hashes of the 2x2x2 cell block nearest each query."""
-    u = query_xyz / grid.cell_size
-    base = floor_cells(query_xyz, grid.cell_size)
+    u = cell_coords(query_xyz, grid.cell_size, grid.cell_inv)
+    base = floor_cells(query_xyz, grid.cell_size, grid.cell_inv)
     frac = u - torch.floor(u)
     step = torch.where(frac < 0.5, -1, 1).to(torch.int32)
     hashes = []

@@ -4,10 +4,15 @@ Twin of ``open3d_slam_private_tpu/ops/knn.py``. Squared distances hold
 ``INF`` and ids hold ``INVALID_ID`` where a query has no correspondence (the
 ``Matches`` contract); the k results of a query are sorted ascending.
 
-The JAX twin forms ``|q|^2 - 2 q.r + |r|^2`` on the MXU. Here every squared
-distance is a direct difference, ``(dx*dx + dy*dy) + dz*dz``: the expansion
-cancels in float32 at map coordinates and flips near-tied winners.
-(``torch.cdist`` switches to the expansion at large sizes too.)
+:func:`knn_bruteforce` ranks by the JAX twin's expansion
+``max((|q|^2 - 2 q.r) + |r|^2, 0)`` in its rounding: XLA's CPU dot and sum
+of squares over the 3 coordinates are fused multiply-add chains in
+coordinate order (``fma(x2, y2, fma(x1, y1, x0 * y0))``, each step rounded
+once to float32), which this module reproduces elementwise in float64 (the
+product of two float32 values is exact there). The expansion cancels in
+float32 at map coordinates, so a direct difference would swap near-tied
+neighbours against the reference. :func:`sq_dist_matrix` (direct
+differences) stays for the brute-force kernel K5's plain version.
 """
 
 from __future__ import annotations
@@ -58,6 +63,31 @@ def sq_dist_matrix(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return d2
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 values, rounded once to float32."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2`` over the last axis of ``[..., 3]`` as XLA's CPU reduction
+    forms it: ``fma(x2, x2, fma(x1, x1, x0 * x0))``."""
+    x0, x1, x2 = x.unbind(-1)
+    return _fma(x2, x2, _fma(x1, x1, x0 * x0))
+
+
+def expansion_sq_dists(q: torch.Tensor, r: torch.Tensor, q_sq: torch.Tensor,
+                       r_sq: torch.Tensor) -> torch.Tensor:
+    """``[n, m]`` squared distances ``max((q_sq - 2 q.r) + r_sq, 0)`` of
+    ``q [n, 3]`` and ``r [m, 3]`` (``q_sq``, ``r_sq``: their
+    :func:`sq_norms`), the cross term a fused multiply-add chain in
+    coordinate order, as ``jnp.dot`` runs it on the CPU. Elementwise: no
+    matrix product, so no reduced-precision path on any device."""
+    q0, q1, q2 = (c[:, None] for c in q.unbind(-1))
+    r0, r1, r2 = (c[None, :] for c in r.unbind(-1))
+    cross = _fma(q2, r2, _fma(q1, r1, q0 * r0))
+    return torch.clamp((q_sq[:, None] - 2.0 * cross) + r_sq[None, :], min=0.0)
+
+
 def knn_bruteforce(
     query_xyz: torch.Tensor,
     query_mask: torch.Tensor,
@@ -67,8 +97,11 @@ def knn_bruteforce(
     max_dist=INF,
 ) -> KnnResult:
     """Exact KNN of ``query_xyz [..., N, 3]`` against one reference
-    ``ref_xyz [M, 3]``: ``k`` first-index argmin passes per chunk of queries,
-    so ties go to the lowest reference index. ``max_dist`` is a euclidean
+    ``ref_xyz [M, 3]``, ranked by :func:`expansion_sq_dists`: ``k``
+    first-index argmin passes per chunk of queries, so ties go to the lowest
+    reference index (the JAX twin's per-tile ``top_k`` and merge keep the
+    same order, and at k = 1 a later tile wins only on a strict ``<``).
+    ``max_dist`` is a euclidean
     radius gate; masked queries get all-invalid rows; masked reference
     points are never returned."""
     lead = query_xyz.shape[:-1]
@@ -81,8 +114,9 @@ def knn_bruteforce(
     dists = torch.full((q.shape[0], k), INF, device=dev)
     ids = torch.zeros((q.shape[0], k), dtype=torch.int32, device=dev)
     step = chunk_rows(m)
+    q_sq, r_sq = sq_norms(q), sq_norms(ref_xyz)
     for s in range(0, q.shape[0] if m else 0, step):
-        d2 = sq_dist_matrix(q[s:s + step], ref_xyz)
+        d2 = expansion_sq_dists(q[s:s + step], ref_xyz, q_sq[s:s + step], r_sq)
         d2 = torch.where(ref_mask[None, :], d2, INF)
         for j in range(k):
             best, arg = d2.min(-1, keepdim=True)

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from open3d_slam_private_tpu_torch.ops.grid_hash import f32, floor_cells
+from open3d_slam_private_tpu_torch.ops.grid_hash import cell_coords, f32, floor_cells, recip
 from open3d_slam_private_tpu_torch.ops.pointcloud import PAD_COORD, PointBatch
 
 _AXIS_BITS = 20
@@ -39,14 +39,18 @@ def voxel_downsample(
     voxel_size,
     capacity: Optional[int] = None,
     priority_center=None,
+    const_size: bool = False,
 ) -> PointBatch:
     """Average the valid points (and extra channels) of each voxel of an
     unbatched ``[N]`` PointBatch into a ``[capacity]`` one (normals are
-    re-normalised)."""
+    re-normalised). ``const_size``: the voxel size is a compile-time
+    constant of the JAX twin's step, so its two divisions by it (the cell
+    and the distance band) are multiplies by the float32 reciprocal
+    (``grid_hash.recip``)."""
     dev = batch.device
     capacity = batch.capacity if capacity is None else capacity
     vs = f32(voxel_size, dev)
-    cell = floor_cells(batch.xyz, vs)
+    cell = floor_cells(batch.xyz, vs, recip(vs) if const_size else None)
     key_hi, key_lo = _pack_keys(cell)
     key_hi = torch.where(batch.mask, key_hi, _BIG)
     key_lo = torch.where(batch.mask, key_lo, _BIG)
@@ -57,7 +61,9 @@ def voxel_downsample(
         center = torch.as_tensor(priority_center, dtype=torch.float32, device=dev)
         d = (cell.float() + 0.5) * vs - center
         dist = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
-        band = torch.clamp(dist / (32.0 * vs), 0.0, 63.0).to(torch.int32)
+        band_m = 32.0 * vs
+        band = torch.clamp(cell_coords(dist, band_m, recip(band_m) if const_size else None),
+                           0.0, 63.0).to(torch.int32)
         band = torch.where(batch.mask, band, 64)
         order = order[_stable_argsort(band[order])]
     s_hi, s_lo = key_hi[order], key_lo[order]

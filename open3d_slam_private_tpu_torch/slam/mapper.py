@@ -96,7 +96,7 @@ def process_scan_for_matching(scan: PointBatch, cfg: MapperConfig) -> PointBatch
     s = scan.with_mask(d2 <= r * r)
     return voxel_downsample(
         s, cfg.scan_voxel_size, capacity=cfg.scan_capacity,
-        priority_center=torch.zeros(3, device=scan.device),
+        priority_center=torch.zeros(3, device=scan.device), const_size=True,
     )
 
 
@@ -128,12 +128,18 @@ def build_map_reference(map_cloud: PointBatch, center: torch.Tensor, cfg: Mapper
     if cfg.ref_capacity is not None and cfg.ref_capacity < patch.capacity:
         patch = compact_uniform(patch, cfg.ref_capacity)
     ngrid = grid_hash.build_grid(
-        patch.padded_xyz(), patch.mask, 2.0 * cfg.normals_radius, cfg.icp.grid_table_size, 32
+        patch.padded_xyz(), patch.mask, 2.0 * cfg.normals_radius, cfg.icp.grid_table_size, 32,
+        const_size=True,
     )
     patch = normals_mod.estimate_normals_moments(
         patch, ngrid, max_dist=cfg.normals_radius, orient_towards=center
     )
-    return icp_mod.build_reference(patch, cfg.icp)
+    ref = icp_mod.build_reference(patch, cfg.icp, const_size=True)
+    # The JAX twin hands the reference to the next jitted step as an
+    # argument, where its cell size is traced: the scan-to-map queries divide.
+    if ref.grid is not None:
+        ref = dataclasses.replace(ref, grid=dataclasses.replace(ref.grid, cell_inv=None))
+    return ref
 
 
 def scan_to_map_step(scan_processed: PointBatch, ref: icp_mod.ICPReference, init_T: torch.Tensor,

@@ -65,7 +65,7 @@ def preprocess(scan: PointBatch, cfg: OdometryConfig) -> PointBatch:
     s = filters.min_max_radius(scan, cfg.min_range, cfg.max_range)
     s = voxel_downsample(
         s, cfg.voxel_size, capacity=cfg.max_points,
-        priority_center=torch.zeros(3, device=s.device),
+        priority_center=torch.zeros(3, device=s.device), const_size=True,
     )
     return normals_mod.estimate_normals(
         s, knn=cfg.normals_knn, max_dist=cfg.normals_radius, orient_towards=(0.0, 0.0, 0.0)

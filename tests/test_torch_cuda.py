@@ -72,6 +72,45 @@ def test_pair_gn_kernel_matches_plain(rng, cuda_device):
         assert torch.equal(g, a)  # no float atomics: bit-identical reruns
 
 
+def _fp64_check(got, args):
+    """K1's five outputs against the float64 sum of the plain version's
+    terms: the counts exact, the sums within 1e-5 of their magnitude."""
+    terms = tpg.terms(*args).double()
+    want, scale = tpg.unpack(terms.sum(1)), tpg.unpack(terms.abs().sum(1))
+    for k, (g, w, s) in enumerate(zip(got, want, scale)):
+        if k in (2, 4):  # sum_w, n_ok: exact counts
+            assert torch.equal(g.double(), w)
+        else:
+            assert ((g.double() - w).abs() <= 1e-5 * (s + 1.0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,case", [(1, 16411, "plain"), (8, 20003, "plain"), (8, 65536, "plain"),
+                                      (3, 5001, "all-invalid"), (2, 7777, "unaligned")])
+def test_pair_gn_one_launch_matches_fp64(rng, cuda_device, B, n, case):
+    """One launch a call at B = 1 and 8, point counts off the 512-point tile
+    and off the 16-byte boundary of a problem's rows, all points invalid, and
+    inputs 4 bytes off a 16-byte boundary; a second call gives the same
+    bits."""
+    args = _pairs(rng, B=B, n=n, device=cuda_device)
+    if case == "all-invalid":
+        args[3] = torch.zeros_like(args[3])
+    if case == "unaligned":
+        for k in range(3):
+            shifted = torch.empty(args[k].numel() + 1, device=cuda_device)[1:].view(args[k].shape)
+            shifted.copy_(args[k])
+            args[k] = shifted
+    before = tpg.pair_gn.launches
+    got = tpg.pair_gn(*args)
+    assert tpg.pair_gn.launches == before + 1
+    _fp64_check(got, args)
+    if case == "all-invalid":
+        assert all(bool((g == 0).all()) for g in got)
+    again = tpg.pair_gn(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_pair_gn_kernel_refuses_bad_inputs(rng, cuda_device):
     args = _pairs(rng, B=2, n=100, device=cuda_device)
@@ -135,6 +174,46 @@ def test_icp_batch_on_card_matches_cpu(rng, cuda_device, gather_kernel):
         assert (torch.linalg.vector_norm(d[:, :3, 3], dim=-1) < 1e-4).all()
         angle = se3.rotation_angular_distance(d[:, :3, :3], torch.eye(3, dtype=torch.float64))
         assert (angle < 1e-4).all()
+
+
+def _adversarial_rows(rng, device, case):
+    """K2 inputs that stress the grouping: every query in one row (four
+    blocks of queries), every query in a distinct row, out-of-range and
+    negative row indices, all queries masked, a row without a valid slot."""
+    cl, h, q, qm = _cell_rows(rng, device)
+    n = h.shape[0]
+    if case == "one-row":
+        h = torch.full_like(h, int(h[0]))
+    elif case == "distinct-rows":
+        n = min(n, cl.table_size)
+        h, q, qm = torch.randperm(cl.table_size, device=device)[:n].to(torch.int32), q[:n], qm[:n]
+    elif case == "out-of-range":
+        h = h.clone()
+        h[::7] = -1 - torch.arange(h[::7].numel(), device=device, dtype=torch.int32)
+        h[3::7] = cl.table_size + torch.arange(h[3::7].numel(), device=device, dtype=torch.int32)
+    elif case == "all-masked":
+        qm = torch.zeros_like(qm)
+    elif case == "empty-row":
+        table = cl.table.clone()
+        table.view(torch.int32)[int(h[0]), :, 3] = -1
+        cl = dataclasses.replace(cl, table=table)
+        h = h.clone()
+        h[: n // 2] = h[0]
+    return cl, h, q, qm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one-row", "distinct-rows", "out-of-range", "all-masked",
+                                  "empty-row"])
+def test_gather_select_adversarial_rows(rng, cuda_device, case):
+    cl, h, q, qm = _adversarial_rows(rng, cuda_device, case)
+    got = tgs.gather_select(cl.table, h, q, qm).view(torch.int32)
+    want = tgs.gather_select_plain(cl.table, h, q, qm).view(torch.int32)
+    assert torch.equal(got, want)
+    if case == "out-of-range":
+        assert bool((got[::7, 3] == -1).all()) and bool((got[3::7, 3] == -1).all())
+    # The order of queries within a row varies between runs; the bits do not.
+    assert torch.equal(tgs.gather_select(cl.table, h, q, qm).view(torch.int32), got)
 
 
 def _pairs_k(rng, B, n, K, device):
@@ -203,7 +282,7 @@ def test_rank_select_kernel_matches_plain(rng, cuda_device):
     got = tsel.rank_select_rows(rows, q, qm).view(torch.int32)
     assert tsel.rank_select_rows.launches == before + 1
     assert torch.equal(got, tsel.rank_select_rows_plain(rows, q, qm).view(torch.int32))
-    # K2 on the same rows, through the shared rank routine, still equals its plain version.
+    # K2 on the same table and queries equals its plain version too.
     assert torch.equal(tgs.gather_select(cl.table, h, q, qm).view(torch.int32),
                        tgs.gather_select_plain(cl.table, h, q, qm).view(torch.int32))
 

@@ -3,7 +3,9 @@ exact KNN (``ops/knn.py``) and K5's plain version against the Pallas kernel
 ``knn_bruteforce_pallas`` in interpret mode, on the CPU.
 
 Both JAX versions form squared distances by the expansion
-``|q|^2 - 2 q.r + |r|^2``; the port takes direct differences. On random,
+``|q|^2 - 2 q.r + |r|^2``. The port's ``knn_bruteforce`` does too, in XLA's
+rounding (``test_torch_parity.py`` holds it bit for bit on a crafted
+near-tie); K5's plain version takes direct differences. On random,
 non-degenerate data the winners agree exactly; distances agree within 1e-4
 (the expansion's float32 cancellation at these coordinates is ~1e-6)."""
 

@@ -9,13 +9,14 @@ within 0.1%. The JAX
 side runs its Pallas pair-GN kernel in interpret mode (O3S_FUSED_INTERPRET=1),
 the port K1's plain version.
 
-The two packages' inputs to each registration differ in the last bits (the
-per-point exponential of the undistortion; XLA's division by a compile-time
-constant as a multiply by its reciprocal), and the production convergence
-test (8 mm smoothed) and the frozen trim threshold can turn one flipped pair
-into millimetres: over five data seeds, three stay within 3e-5 m for all
-nine steps and two part by 1-4 mm (ROADMAP queue 3). This test uses the
-first seed."""
+The port reproduces XLA's multiply by the reciprocal where JAX divides by a
+compile-time constant, and JAX's brute KNN ranking (``test_torch_parity.py``).
+The two packages' inputs to each registration still differ in the last bits
+(the per-point exponential of the undistortion; the KNN normals' eigen
+solver), and the production convergence test (8 mm smoothed) and the frozen
+trim threshold can turn one flipped pair into a tenth of a millimetre: data
+seed 2 parts by 1.7e-4 m after two scans (ROADMAP queue 3) and stays out of
+the parametrisation; seeds 0, 1, 3 and 4 hold 1e-4 m / 1e-4 rad."""
 
 import dataclasses
 
@@ -88,7 +89,9 @@ def fused_interpret(monkeypatch):
     monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
-def test_slam_pipeline_matches_jax(rng):
+@pytest.mark.parametrize("seed", [0, 1, 3, 4])
+def test_slam_pipeline_matches_jax(seed):
+    rng = np.random.default_rng(seed)
     S = scene(rng)
     jcfg = _config()
     jp = jpipe.SlamPipeline(jcfg)
