@@ -12,7 +12,10 @@ over the card's memory rate or operations over its FP32 rate, the larger)
 and, where one PyTorch call computes the same function, that call's time. K1
 and K3 are also held to bit-identical reruns; K2 also meets its checks on
 inputs that stress its grouping by row (one row, distinct rows, row indices
-out of range, every query masked, an empty row). Then it drives the port's
+out of range, every query masked, an empty row); K5 is also held on a
+map-scale near-tie set and timed at the relocalisation burst's 2,097,152 x
+65,536, with its plan (queries a thread, reference splits). Then it drives
+the port's
 paths through their user entry points: the ``SlamPipeline`` (LiDAR odometry
 -> mapper -> submap collection, loop closure off) over a 96-scan synthetic
 drive of 28.5 m that crosses the 20 m submap creation radius; the ``Mapper``
@@ -21,13 +24,19 @@ over a 30-scan sequence; a batch of 8 scan-to-map registrations
 the rank-select kernel (K4); ``register_pair`` on the reference-exact
 per-iteration chain with the grid, brute and brute_pallas (K5) matchers; and
 ``register_hypotheses``, the relocalisation burst of 4,096 seeds, with the
-grid and brute_pallas matchers (the K5 leg held against the same chain with
-K5's plain version). Each path runs with every launch count set to 0 just
+grid and brute_pallas matchers (the timed K5 leg rerun with each K5 call
+held against the plain version, and on 64 seeds against the same chain
+with K5's plain version). Each path runs with every launch count set to 0 just
 before it and read just after; the pipeline's profiled scans also give K1's
 device time per launch at the SLAM step's shapes. Data come from fixed numpy
 seeds. Every phase prints a line; any failure raises and exits non-zero. The
 last stdout line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --side DIR
+
+runs the phases a change to K5 moves from the checkout at ``DIR`` (see
+:func:`compare_side`).
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
                       "gather_select_scatter", "gather_select_rank"),
     "pair_gn_k": ("pair_gn_k_partial", "pair_gn_k_final"),
     "rank_select_rows": ("rank_select_kernel",),
-    "knn_brute": ("knn_brute_kernel",),
+    "knn_brute": ("knn_brute_pack", "knn_brute_kernel", "knn_brute_merge"),
 }
 # Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -70,7 +79,8 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # squared distance (8), residual (5), cross product (9), the weighted
 # columns (6), the 21 + 6 products of A and b, w r^2 (2) and the 31 sums.
 PAIR_GN_FLOPS = 106
-# Per candidate of K2/K4 and per pair of K5: 3 differences, 3 squares, 2 sums.
+# Per candidate of K2/K4: 3 differences, 3 squares, 2 sums; per pair of K5:
+# the 3 products and 2 sums of the dot, the -2 scaling and 2 sums.
 D2_FLOPS = 8
 
 
@@ -492,7 +502,7 @@ def phase_kernels(hs):
 
     results.append(_check_pair_gn_k(ref, readings, cfg, T, src0))
     results.append(_check_rank_select(grid, h, q, m))
-    results.append(_check_knn_brute(ref, src0[0].contiguous()))
+    results.append(_check_knn_brute(ref, src0))
     return results
 
 
@@ -539,13 +549,17 @@ def _check_rank_select(grid, h, q, m):
         raise RuntimeError(f"rank_select_rows disagrees with its plain version: id agreement "
                            f"{agree}, bitwise rows {bitwise}")
     # Bytes: xyz + id of every slot of a row (the normals of the winner
-    # only), the query and its mask, 16 floats out.
+    # only), the query and its mask, 16 floats out. The sector floor is
+    # noted beside it: each 32-byte slot of the [N, cap * 8] rows
+    # interleaves xyz and id with the normal, and DRAM moves 32-byte
+    # sectors, so this layout moves the whole tensor.
     n, cap = rows.shape[0], grid.list_cap
     t = timed("rank_select_rows", lambda: selk.rank_select_rows(rows, q, m),
               lambda: selk.rank_select_rows_plain(rows, q, m),
               n * (cap * 16 + 12 + 12 + 1 + 64), int(m.sum()) * cap * D2_FLOPS, plain_reps=5)
+    floor_ms = bound(n * (cap * 32 + 12 + 1 + 64), 0)["bound_ms"]
     say("kernel", name="rank_select_rows", queries=n, table=list(grid.table.shape),
-        id_agreement=agree, bitwise_rows=bitwise, max_abs_err=err, **t)
+        id_agreement=agree, bitwise_rows=bitwise, max_abs_err=err, sector_floor_ms=floor_ms, **t)
     return dict(name="rank_select_rows", route="cuda",
                 source="open3d_slam_private_tpu_torch/csrc/rank_select.cu",
                 replaces="open3d_slam_private_tpu/kernels/select_pallas.py:117",
@@ -561,32 +575,111 @@ def cdist_min(q, r, chunk=8192):
     return torch.cat([o.values for o in outs]), torch.cat([o.indices for o in outs])
 
 
-def _check_knn_brute(ref, q):
-    """K5: one reading's points against the headline's reference cloud."""
-    from open3d_slam_private_tpu_torch.kernels import knn_brute as kbk
+def ulps(a, b):
+    """Units in the last place between two float32 tensors (their bit
+    patterns in sign-magnitude order; inf against inf is 0)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
 
-    refp = ref.cloud.padded_xyz().contiguous()
-    d2, ids = kbk.knn_brute(q, refp)
-    d2_p, ids_p = kbk.knn_brute_plain(q, refp)
-    lib_d, lib_ids = cdist_min(q, refp)
+
+def near_ties(n_query, n_ref, seed=21, pad=0):
+    """Map-scale near-ties in an 80 x 80 x 4 m box: half the queries at the
+    midpoints of reference pairs 2 cm apart (both distances 1e-4 m^2, equal
+    up to rounding), the rest uniform; the reference's last ``pad`` rows at
+    the padding coordinate (1e9). Needs ``n_query <= n_ref - pad``."""
+    rng = np.random.default_rng(seed)
+    box = lambda n: np.c_[rng.uniform(-40, 40, (n, 2)), rng.uniform(0, 4, (n, 1))]
+    r = box(n_ref)
+    half = n_query // 2
+    perm = rng.permutation(n_ref - pad)
+    a, b = perm[:half], perm[half:2 * half]
+    u = rng.normal(size=(half, 3))
+    r[b] = r[a] + 0.02 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    r = r.astype(np.float32)
+    r[n_ref - pad:] = 1e9
+    q = np.r_[(r[a].astype(np.float64) + r[b]) / 2, box(n_query - half)].astype(np.float32)
+    return q, r
+
+
+def _held_knn_brute(got, want, what):
+    """K5's ``(d2, ids)`` against its plain version's on the same inputs:
+    ids equal, d2 within 1 ulp (the plain version rounds each fused
+    multiply-add twice, float64 then float32). Raises where they part."""
+    (d2, ids), (d2_p, ids_p) = got, want
     torch.cuda.synchronize()
     agree = float((ids == ids_p).float().mean())
-    err = float((d2 - d2_p).abs().max())
-    if not (agree == 1.0 and err <= 1e-6 * max(1.0, float(d2_p.max()))):
-        raise RuntimeError(f"knn_brute disagrees with its plain version: id agreement {agree}, "
-                           f"max d2 error {err}")
-    lib_agree = float((lib_ids.to(ids.dtype) == ids).float().mean())
+    worst_ulps = int(ulps(d2, d2_p).max())
+    out = dict(id_agreement=agree, max_d2_ulps=worst_ulps,
+               d2_bit_equal=float((d2.view(torch.int32) == d2_p.view(torch.int32)).float().mean()),
+               negative_d2=int((d2 < 0).sum()), max_abs_err=float((d2 - d2_p).abs().max()))
+    if not (agree == 1.0 and worst_ulps <= 1):
+        raise RuntimeError(f"knn_brute disagrees with its plain version on {what}: {out}")
+    return out
+
+
+def _hold_knn_brute(q, r, what):
+    """One K5 call on ``q``, ``r`` held against the plain version."""
+    from open3d_slam_private_tpu_torch.kernels import knn_brute as kbk
+
+    d2, ids = kbk.knn_brute(q, r)
+    return d2, ids, _held_knn_brute((d2, ids), kbk.knn_brute_plain(q, r), what)
+
+
+def _check_knn_brute(ref, src0):
+    """K5: one reading's points against the headline's reference cloud
+    (65,536 x 65,536, register_pair's shape) and a near-tie set of the same
+    size, each held against the plain version; timed there with the
+    ``torch.cdist`` yardstick; and at the relocalisation burst's 2,097,152 x
+    65,536 (the headline's 8 readings, 4 times over), held and timed."""
+    from open3d_slam_private_tpu_torch.kernels import knn_brute as kbk
+
+    q = src0[0].contiguous()
+    refp = ref.cloud.padded_xyz().contiguous()
     nq, nr = q.shape[0], refp.shape[0]
+    d2, ids, check = _hold_knn_brute(q, refp, "the headline")
+    qt, rt = (torch.as_tensor(x, device=q.device) for x in near_ties(nq, nr))
+    ties = _hold_knn_brute(qt, rt, "the near-tie set")[2]
+    del qt, rt
+    lib_d, lib_ids = cdist_min(q, refp)
+    lib_agree = float((lib_ids.to(ids.dtype) == ids).float().mean())
+    del lib_d, lib_ids
+    # Bytes: each query and reference point read once, (d2, id) out.
     t = timed("knn_brute", lambda: kbk.knn_brute(q, refp), lambda: kbk.knn_brute_plain(q, refp),
               nq * 12 + nr * 12 + nq * 8, nq * nr * D2_FLOPS, library_fn=lambda: cdist_min(q, refp),
               plain_reps=5)
+    plan = kbk.knn_brute_plan(nq, nr, q.device)
     say("kernel", name="knn_brute", queries=nq, reference=nr,
-        reference_valid=int(ref.cloud.mask.sum()), id_agreement=agree, max_d2_err=err,
-        library_id_agreement=lib_agree, **t)
+        reference_valid=int(ref.cloud.mask.sum()), plan=plan, near_ties=ties,
+        library_id_agreement=lib_agree, **check, **t)
+
+    # The burst's shape: every result held, the 524,288 distinct queries
+    # against the plain version and their three repeats to the same bits.
+    qu = src0.reshape(-1, 3).contiguous()
+    qb, nu = qu.repeat(4, 1).contiguous(), qu.shape[0]
+    nb = qb.shape[0]
+    d2b, idsb = kbk.knn_brute(qb, refp)
+    burst_check = _held_knn_brute((d2b[:nu], idsb[:nu]), kbk.knn_brute_plain(qu, refp),
+                                  "the burst's shape")
+    for k in range(1, nb // nu):
+        part = slice(k * nu, (k + 1) * nu)
+        if not (torch.equal(idsb[part], idsb[:nu])
+                and torch.equal(d2b[part].view(torch.int32), d2b[:nu].view(torch.int32))):
+            raise RuntimeError(f"knn_brute at the burst's shape: repeat {k} of the queries differs")
+    del d2b, idsb, qu
+    burst_us, _ = device_us_per_call(lambda: kbk.knn_brute(qb, refp), DEVICE_KERNELS["knn_brute"], reps=3)
+    burst = dict(queries=nb, reference=nr, plan=kbk.knn_brute_plan(nb, nr, q.device),
+                 held=burst_check, device_us=burst_us, ms=cuda_ms(lambda: kbk.knn_brute(qb, refp), reps=3, rounds=3),
+                 **bound(nb * 12 + nr * 12 + nb * 8, nb * nr * D2_FLOPS))
+    burst["bound_share"] = burst["bound_ms"] * 1e3 / burst_us if burst_us else None
+    say("kernel", name="knn_brute", shape="burst", **burst)
+    del qb
     return dict(name="knn_brute", route="cuda",
                 source="open3d_slam_private_tpu_torch/csrc/knn_brute.cu",
                 replaces="open3d_slam_private_tpu/kernels/knn_pallas.py:78",
-                max_abs_err=err, **t)
+                max_abs_err=check["max_abs_err"], max_d2_ulps=max(check["max_d2_ulps"], ties["max_d2_ulps"]),
+                plan=plan, **t, at_burst=burst)
 
 
 def phase_mapper(dev, cfg=None):
@@ -947,14 +1040,60 @@ def phase_register_pair(hs):
     return {m: counts for m, (_, counts) in out.items()}
 
 
+def _hold_hypotheses_k5(icp_mod, skel, ref_cloud, seeds, cfg, T):
+    """The burst's K5 leg, checked. (1) The timed 4,096-seed leg again, each
+    K5 call held against the plain version on its own inputs (the first
+    call on all its queries, the others on their first 65,536), and its
+    poses compared with the timed run's bits. (2) The chain on the first 64
+    seeds with the kernel and with K5's plain version in its place, held to
+    each other (1e-4 m / rad): a batch of 64 against a batch of 64, since
+    the chain's result for a seed moves with the batch size, through other
+    operations than K5. (3) Reported: the timed leg's first 64 poses
+    against the 64-seed chain's. The "brute" matcher clamps the expansion
+    at 0 as the JAX package's does and K5 does not, so the caller reports,
+    not holds, its distance from the 64-seed chain."""
+    from open3d_slam_private_tpu_torch.kernels.knn_brute import knn_brute_plain
+
+    kernel, calls = icp_mod.knn_brute, []
+
+    def held(q, r):
+        d2, ids = kernel(q, r)
+        sub = slice(None) if not calls else slice(0, 65536)
+        calls.append(dict(queries=int(q[sub].shape[0]), **_held_knn_brute(
+            (d2[sub], ids[sub]), knn_brute_plain(q[sub], r), f"hypotheses K5 call {len(calls)}")))
+        return d2, ids
+
+    icp_mod.knn_brute = held
+    try:
+        again = icp_mod.register_hypotheses(skel, ref_cloud, seeds, cfg).transform
+    finally:
+        icp_mod.knn_brute = kernel
+    (at, _) = pose_errors(T, again.double().cpu().numpy())
+    few = icp_mod.register_hypotheses(skel, ref_cloud, seeds[:64], cfg).transform
+    icp_mod.knn_brute = knn_brute_plain
+    try:
+        plain = icp_mod.register_hypotheses(skel, ref_cloud, seeds[:64], cfg).transform
+    finally:
+        icp_mod.knn_brute = kernel
+    (dt, dr) = pose_errors(few, plain.double().cpu().numpy())
+    (st, _) = pose_errors(T[:64], few.double().cpu().numpy())
+    if not (max(dt) <= 1e-4 and max(dr) <= 1e-4):
+        raise RuntimeError(f"hypotheses brute_pallas vs its plain chain: {max(dt)} m, {max(dr)} rad")
+    return dict(k5_calls_held=len(calls), k5_queries_held=[c["queries"] for c in calls],
+                k5_max_d2_ulps=max(c["max_d2_ulps"] for c in calls),
+                rerun_bit_identical=bool(torch.equal(again.view(torch.int32), T.view(torch.int32))),
+                rerun_max_trans_diff_m=max(at), max_trans_diff_m=max(dt), max_rot_diff_rad=max(dr),
+                batch_4096_vs_64_max_trans_diff_m=max(st),
+                batch_4096_vs_64_seeds_beyond_0_1_mm=int(np.sum(np.asarray(st) > 1e-4)), few=few)
+
+
 def phase_hypotheses(hs):
     """The relocalisation burst (``register_hypotheses``): one 512-point
     skeleton scan, 4,096 seeds (+-0.1 rad, +-2 m) around the truth (the
     identity), the light chain without coarse stage or candidate caching,
     against the headline's reference cloud; a grid leg and a brute_pallas
-    (K5) leg. The first 64 seeds of the K5 leg are held against the same
-    chain with K5's plain version. Returns each leg's launch counts."""
-    from open3d_slam_private_tpu_torch.kernels.knn_brute import knn_brute_plain
+    (K5) leg, checked by :func:`_hold_hypotheses_k5`. Returns each leg's
+    launch counts."""
     from open3d_slam_private_tpu_torch.models import icp as icp_mod
     from open3d_slam_private_tpu_torch.ops import pointcloud as pc
 
@@ -990,26 +1129,65 @@ def phase_hypotheses(hs):
         if matcher == "brute_pallas":
             if counts["knn_brute"] <= 0:
                 raise RuntimeError(f"hypotheses brute_pallas missed K5: {counts}")
-            # The same chain with K5's plain version (direct differences) in
-            # its place. The "brute" matcher ranks by the JAX package's
-            # expansion, so at near-tied neighbours it may take another pair
-            # than K5; its distance from the K5 leg is reported, not held.
-            kernel = icp_mod.knn_brute
-            icp_mod.knn_brute = knn_brute_plain
-            try:
-                plain = icp_mod.register_hypotheses(skel, hs["ref_cloud"], seeds[:64], cfg)
-            finally:
-                icp_mod.knn_brute = kernel
+            out_k5 = _hold_hypotheses_k5(icp_mod, skel, hs["ref_cloud"], seeds, cfg, T)
             brute = icp_mod.register_hypotheses(skel, hs["ref_cloud"], seeds[:64],
                                                 dataclasses.replace(hyp_cfg, matcher="brute"))
-            (dt, dr) = pose_errors(T[:64], plain.transform.double().cpu().numpy())
-            (bt, br) = pose_errors(T[:64], brute.transform.double().cpu().numpy())
-            say("hypotheses_k5_vs_plain", seeds=int(min(64, HYPOTHESES)), max_trans_diff_m=max(dt),
-                max_rot_diff_rad=max(dr), vs_brute_expansion_max_trans_diff_m=max(bt),
+            (bt, _) = pose_errors(out_k5.pop("few"), brute.transform.double().cpu().numpy())
+            say("hypotheses_k5_vs_plain", seeds=int(min(64, HYPOTHESES)), **out_k5,
+                vs_brute_expansion_max_trans_diff_m=max(bt),
                 vs_brute_expansion_seeds_beyond_0_1_mm=int(np.sum(np.asarray(bt) > 1e-4)))
-            if not (max(dt) <= 1e-4 and max(dr) <= 1e-4):
-                raise RuntimeError(f"hypotheses brute_pallas vs its plain chain: {max(dt)} m, {max(dr)} rad")
     return out
+
+
+def compare_side(root):
+    """The phases a change to K5 moves, run from the checkout at ``root``
+    with that checkout's own ``chip_smoke.py`` and package: the kernel
+    checks, ``register_pair`` three times, the relocalisation burst, and a
+    ``torch.profiler`` session around one ``register_pair`` brute_pallas
+    call (its host wall against its device time). Run it once per side,
+    each in its own process, all in one call to the card, e.g. parent,
+    change, change, parent::
+
+        python3 chip_smoke.py --side build/parent; python3 chip_smoke.py --side .
+    """
+    import importlib.util
+    import os
+    import sys
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("side_smoke", os.path.join(root, "chip_smoke.py"))
+    side = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(side)
+    side.say("side", root=root)
+    side.phase_device()
+    side.phase_build()
+    hs = side.headline_setup(torch.device("cuda", 0))
+    side.phase_kernels(hs)
+    for _ in range(3):
+        side.phase_register_pair(hs)
+
+    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+    from open3d_slam_private_tpu_torch.ops.pointcloud import PointBatch
+
+    base = icp_mod.ICPConfig(knn=1, max_match_dist=0.5, matcher="brute_pallas", grid_table_size=1 << 16,
+                             grid_bucket_cap=48, trimmed_ratio=0.9, max_iterations=30)
+    r = hs["readings"]
+    reading = PointBatch(xyz=r.xyz[0], mask=r.mask[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        icp_mod.register_pair(reading, hs["ref_cloud"], hs["init"][0], base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device_ms, top = profiled_device_ms(prof)
+    launches = sum(e.count for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA)
+    side.say("register_pair_profile", matcher="brute_pallas", profiled_wall_ms=wall * 1e3,
+             device_ms=device_ms, device_items=launches, top_device_items=top)
+    side.phase_hypotheses(hs)
 
 
 def main():
@@ -1041,4 +1219,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--side"]:
+        compare_side(sys.argv[2])
+    else:
+        main()

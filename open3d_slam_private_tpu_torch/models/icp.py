@@ -202,9 +202,16 @@ def build_reference(
     widened by ``candidate_slack`` when the rounds cache candidates. The
     brute matchers build none. ``const_size``: the JAX twin builds (and
     queries) the structure inside a jitted step of a static config, where
-    the cell size is a compile-time constant (``grid_hash.recip``)."""
+    the cell size is a compile-time constant (``grid_hash.recip``).
+
+    The brute matchers centre at JAX's centroid bit for bit: they rank by
+    the expansion ``|q|^2 - 2 q.r + |r|^2``, whose float32 rounding turns a
+    last-bit shift of the centred coordinates into other near-tie picks.
+    The cell matchers keep PyTorch's own sum (one launch)."""
     check_config(cfg)
-    c = masked_centroid(reference) if centroid is None else centroid
+    if centroid is None:
+        centroid = masked_centroid(reference, xla_order=cfg.matcher in ("brute", "brute_pallas"))
+    c = centroid
     centered = dataclasses.replace(
         reference,
         xyz=torch.where(reference.mask[..., None], reference.xyz - c, reference.xyz),

@@ -11,8 +11,8 @@ coordinate order (``fma(x2, y2, fma(x1, y1, x0 * y0))``, each step rounded
 once to float32), which this module reproduces elementwise in float64 (the
 product of two float32 values is exact there). The expansion cancels in
 float32 at map coordinates, so a direct difference would swap near-tied
-neighbours against the reference. :func:`sq_dist_matrix` (direct
-differences) stays for the brute-force kernel K5's plain version.
+neighbours against the reference. The brute-force kernel K5's plain version
+ranks by the same expansion without the clamp, as the Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -51,18 +51,6 @@ def chunk_rows(m: int) -> int:
     return max(1, _CHUNK_ELEMS // max(m, 1))
 
 
-def sq_dist_matrix(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``[n, m]`` squared distances between ``q [n, 3]`` and ``r [m, 3]`` as
-    ``(dx*dx + dy*dy) + dz*dz`` (separate float32 roundings, no FMA)."""
-    d = q[:, None, 0] - r[None, :, 0]
-    d2 = d * d
-    d = q[:, None, 1] - r[None, :, 1]
-    d2 += d * d
-    d = q[:, None, 2] - r[None, :, 2]
-    d2 += d * d
-    return d2
-
-
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` of float32 values, rounded once to float32."""
     return torch.addcmul(c.double(), a.double(), b.double()).float()
@@ -76,16 +64,18 @@ def sq_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 def expansion_sq_dists(q: torch.Tensor, r: torch.Tensor, q_sq: torch.Tensor,
-                       r_sq: torch.Tensor) -> torch.Tensor:
-    """``[n, m]`` squared distances ``max((q_sq - 2 q.r) + r_sq, 0)`` of
-    ``q [n, 3]`` and ``r [m, 3]`` (``q_sq``, ``r_sq``: their
-    :func:`sq_norms`), the cross term a fused multiply-add chain in
-    coordinate order, as ``jnp.dot`` runs it on the CPU. Elementwise: no
-    matrix product, so no reduced-precision path on any device."""
+                       r_sq: torch.Tensor, clamp: bool = True) -> torch.Tensor:
+    """``[n, m]`` squared distances ``(q_sq - 2 q.r) + r_sq`` of ``q [n, 3]``
+    and ``r [m, 3]`` (``q_sq``, ``r_sq``: their :func:`sq_norms`), the cross
+    term a fused multiply-add chain in coordinate order, as ``jnp.dot`` runs
+    it on the CPU; clamped at 0 unless ``clamp`` is False (a distance may
+    then come out negative). Elementwise: no matrix product, so no
+    reduced-precision path on any device."""
     q0, q1, q2 = (c[:, None] for c in q.unbind(-1))
     r0, r1, r2 = (c[None, :] for c in r.unbind(-1))
     cross = _fma(q2, r2, _fma(q1, r1, q0 * r0))
-    return torch.clamp((q_sq[:, None] - 2.0 * cross) + r_sq[None, :], min=0.0)
+    d2 = (q_sq[:, None] - 2.0 * cross) + r_sq[None, :]
+    return torch.clamp(d2, min=0.0) if clamp else d2
 
 
 def knn_bruteforce(

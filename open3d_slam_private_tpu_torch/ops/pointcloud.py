@@ -108,10 +108,36 @@ def stack(batches) -> PointBatch:
     )
 
 
-def masked_centroid(batch: PointBatch) -> torch.Tensor:
-    """``[..., 3]`` centroid of the valid points (zero when empty)."""
+_SUM_WINDOW = 32
+
+
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x [..., n]`` over its last axis in XLA's CPU order: while
+    more than 32 remain, sum windows of 32 (zeros padded to a multiple of
+    32, half before the values and the rest after), each from 0 left to
+    right in float32; then the last <= 32 the same way. The order is fixed
+    by ``n`` alone, on every device."""
+    def run(v):
+        s = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+        for j in range(v.shape[-1]):
+            s = s + v[..., j]
+        return s
+
+    while x.shape[-1] > _SUM_WINDOW:
+        pad = -x.shape[-1] % _SUM_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = run(x.reshape(*x.shape[:-1], -1, _SUM_WINDOW))
+    return run(x)
+
+
+def masked_centroid(batch: PointBatch, xla_order: bool = False) -> torch.Tensor:
+    """``[..., 3]`` centroid of the valid points (zero when empty). With
+    ``xla_order`` the sum runs in XLA's CPU order (:func:`_ordered_sum`,
+    about 100 small launches on a card) and the centroid equals the JAX
+    package's bit for bit."""
     m = batch.mask[..., None].to(batch.xyz.dtype)
-    s = (batch.xyz * m).sum(-2)
+    xm = batch.xyz * m
+    s = _ordered_sum(xm.transpose(-1, -2)) if xla_order else xm.sum(-2)
     c = m.sum(-2)
     return s / torch.clamp(c, min=1.0)
 

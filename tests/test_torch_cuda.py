@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import near_ties, ulps
 from open3d_slam_private_tpu_torch.geometry import se3
 from open3d_slam_private_tpu_torch.kernels import gather_select as tgs
 from open3d_slam_private_tpu_torch.kernels import pair_gn as tpg
@@ -303,24 +304,107 @@ def test_rank_select_kernel_refuses_bad_inputs(rng, cuda_device):
         tsel.rank_select_rows(shifted, q, qm)
 
 
+def _knn_brute_both(q, ref):
+    """K5's kernel (one launch, counted) and its plain version on the same
+    inputs, held to ids equal and distances within 1 ulp (the plain version
+    rounds each fused multiply-add twice, float64 then float32)."""
+    from open3d_slam_private_tpu_torch.kernels import knn_brute as tkb
+
+    before = tkb.knn_brute.launches
+    d2, ids = tkb.knn_brute(q, ref)
+    torch.cuda.synchronize()
+    assert tkb.knn_brute.launches == before + 1
+    d2_p, ids_p = tkb.knn_brute_plain(q, ref)
+    assert ids.dtype == torch.int32 and torch.equal(ids, ids_p)
+    if q.shape[0]:
+        assert int(ulps(d2, d2_p).max()) <= 1
+    return d2, ids
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq", [1000, 70000, 300000])
 def test_knn_brute_kernel_matches_plain(rng, cuda_device, nq):
-    """Query counts that pick 1, 2..4 and 8 queries a thread; padded rows
-    never win; ids and distances equal the plain version's bit for bit."""
-    from open3d_slam_private_tpu_torch.kernels import knn_brute as tkb
-
+    """Query counts from a few blocks split across the reference to many
+    query tiles; padded rows never win; exact hits give 0; ids equal the
+    plain version's, distances within 1 ulp; the launch counter counts each
+    call."""
     ref = torch.tensor(rng.uniform(-10, 10, (5003, 3)).astype(np.float32), device=cuda_device)
     ref[-7:] = tpc.PAD_COORD
     q = torch.tensor(rng.uniform(-11, 11, (nq, 3)).astype(np.float32), device=cuda_device)
     q[:10] = ref[100:110]  # exact hits
-    before = tkb.knn_brute.launches
-    d2, ids = tkb.knn_brute(q, ref)
-    assert tkb.knn_brute.launches == before + 1
-    d2_p, ids_p = tkb.knn_brute_plain(q, ref)
-    assert torch.equal(ids, ids_p)
-    assert torch.equal(d2, d2_p)
+    d2, ids = _knn_brute_both(q, ref)
     assert int(ids.max()) < 5003 - 7 and (d2[:10] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nr", [(100, 70000), (200000, 300), (5000, 1037), (3000, 1), (50, 0),
+                                   (0, 500)])
+def test_knn_brute_kernel_shapes(rng, cuda_device, nq, nr):
+    """Q << M (many splits), Q >> M (one split), M off the tile and the
+    split, M = 1, M = 0 ((inf, 0) for every query) and Q = 0."""
+    from open3d_slam_private_tpu_torch.kernels import knn_brute as tkb
+
+    q = torch.tensor(rng.uniform(-40, 40, (nq, 3)).astype(np.float32), device=cuda_device)
+    ref = torch.tensor(rng.uniform(-40, 40, (nr, 3)).astype(np.float32), device=cuda_device)
+    plan = tkb.knn_brute_plan(nq, nr, cuda_device)
+    assert plan["packed_rows"] >= nr
+    if nq == 100:
+        assert plan["splits"] > 1
+    d2, ids = _knn_brute_both(q, ref)
+    if nr == 0:
+        assert torch.isinf(d2).all() and (ids == 0).all()
+
+
+@pytest.mark.cuda
+def test_knn_brute_kernel_ties_take_the_lowest_index(rng, cuda_device):
+    """Exact duplicates of one reference block at several offsets, among
+    them either side of a chunk (64), a tile (128) and every split boundary
+    of the plan: every query's distance ties across the copies, and the
+    first copy wins, as in the plain version."""
+    from open3d_slam_private_tpu_torch.kernels import knn_brute as tkb
+
+    base = rng.uniform(-40, 40, (16, 3)).astype(np.float32)
+    filler = rng.uniform(200, 300, (40000, 3)).astype(np.float32)  # never nearest
+    q = torch.tensor(base + rng.normal(scale=0.05, size=(600, 16, 3)).astype(np.float32)
+                     .reshape(-1, 16, 3), device=cuda_device).reshape(-1, 3)
+    plan = tkb.knn_brute_plan(q.shape[0], filler.shape[0], cuda_device)
+    tiles = plan["packed_rows"] // 128
+    bounds = sorted({64, 128} | {tiles * s // plan["splits"] * 128 for s in range(1, plan["splits"])})
+    assert plan["splits"] > 1
+    starts = [0] + [b - 8 for b in bounds]  # each copy straddles its boundary
+    for st in starts:
+        filler[st:st + 16] = base
+    ref = torch.tensor(filler, device=cuda_device)
+    d2, ids = _knn_brute_both(q, ref)
+    first = torch.tensor(starts[0], device=cuda_device) + torch.arange(16, device=cuda_device).repeat(600)
+    assert torch.equal(ids.long(), first)
+
+
+@pytest.mark.cuda
+def test_knn_brute_kernel_negative_and_tiny(rng, cuda_device):
+    """Queries 10 um off reference points at ~40 m, where the unclamped
+    expansion goes negative; queries and references at 0 and at tiny
+    coordinates (products near and below the smallest normal float32)."""
+    r = np.c_[rng.uniform(30, 40, (4096, 2)), rng.uniform(-2, 4, (4096, 1))].astype(np.float32)
+    u = rng.normal(size=(4096, 3))
+    q = (r + 1e-5 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32)
+    d2, _ = _knn_brute_both(torch.tensor(q, device=cuda_device), torch.tensor(r, device=cuda_device))
+    assert int((d2 < 0).sum()) > 100
+    for scale in (1e-15, 1e-19, 1e-21, 1e-23):
+        q = rng.uniform(-1, 1, (3000, 3)) * scale
+        r = rng.uniform(-1, 1, (2000, 3)) * scale
+        q[:20], r[:20], q[20:40] = 0.0, 0.0, r[100:120]
+        _knn_brute_both(torch.tensor(q.astype(np.float32), device=cuda_device),
+                        torch.tensor(r.astype(np.float32), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_knn_brute_kernel_near_ties(cuda_device):
+    """Map-scale near-ties: 8,192 queries at midpoints of reference pairs
+    2 cm apart, 8,192 uniform, against 65,536 points in an 80 x 80 x 4 m
+    box (the smoke's near-tie set, smaller)."""
+    q, r = near_ties(16384, 65536, seed=7)
+    _knn_brute_both(torch.tensor(q, device=cuda_device), torch.tensor(r, device=cuda_device))
 
 
 @pytest.mark.cuda

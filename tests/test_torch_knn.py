@@ -3,17 +3,20 @@ exact KNN (``ops/knn.py``) and K5's plain version against the Pallas kernel
 ``knn_bruteforce_pallas`` in interpret mode, on the CPU.
 
 Both JAX versions form squared distances by the expansion
-``|q|^2 - 2 q.r + |r|^2``. The port's ``knn_bruteforce`` does too, in XLA's
-rounding (``test_torch_parity.py`` holds it bit for bit on a crafted
-near-tie); K5's plain version takes direct differences. On random,
-non-degenerate data the winners agree exactly; distances agree within 1e-4
-(the expansion's float32 cancellation at these coordinates is ~1e-6)."""
+``|q|^2 - 2 q.r + |r|^2`` in XLA's rounding (fused multiply-add chains in
+coordinate order), and so do the port's: ``knn_bruteforce`` clamped at 0 as
+JAX's ``ops/knn.py`` does (``test_torch_parity.py`` holds it bit for bit on a
+crafted near-tie), K5's plain version unclamped as the Pallas kernel is.
+K5's plain version is held bit for bit (ids and distances) against the
+Pallas kernel: on uniform data, on map-scale near-ties, where the unclamped
+distance goes negative, and on a reference that is all padding."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import near_ties
 from open3d_slam_private_tpu.kernels.knn_pallas import knn_bruteforce_pallas
 from open3d_slam_private_tpu.ops import knn as jknn
 from open3d_slam_private_tpu_torch.kernels import knn_brute as tkb
@@ -72,8 +75,50 @@ def test_knn_brute_plain_matches_pallas(rng, nq, nr):
     d_g, i_g = tkb.knn_brute(torch.tensor(q), torch.tensor(r))
     assert i_g.dtype == torch.int32
     np.testing.assert_array_equal(i_g.numpy(), np.asarray(i_w))
-    np.testing.assert_allclose(d_g.numpy(), np.asarray(d_w), atol=1e-4)
+    np.testing.assert_array_equal(d_g.numpy().view(np.int32), np.asarray(d_w).view(np.int32))
     assert i_g.max() < nr - 5  # padded rows never win
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_knn_brute_plain_near_ties_match_pallas(seed):
+    """Where ranking by direct differences and by the expansion part (the
+    midpoints), the plain version takes the Pallas kernel's winner and
+    distance, bit for bit."""
+    q, r = near_ties(1024, 2048, seed, pad=5)
+    d_w, i_w = knn_bruteforce_pallas(jnp.asarray(q), jnp.asarray(r), r_tile=512, interpret=True)
+    d_g, i_g = tkb.knn_brute(torch.tensor(q), torch.tensor(r))
+    np.testing.assert_array_equal(i_g.numpy(), np.asarray(i_w))
+    np.testing.assert_array_equal(d_g.numpy().view(np.int32), np.asarray(d_w).view(np.int32))
+    direct = ((q[:, None, :].astype(np.float64) - r[None, :, :]) ** 2).sum(-1).argmin(1)
+    assert (direct != i_g.numpy()).any()  # the set holds ties the expansion breaks its own way
+
+
+def test_knn_brute_plain_negative_distances_match_pallas(rng):
+    """Queries 10 um off reference points at ~40 m: the unclamped expansion
+    goes negative (|q|^2 ~ 3e3, one unit in its last place ~2.4e-4) and is
+    returned as it is, bit for bit as the Pallas kernel returns it."""
+    r = np.c_[rng.uniform(30, 40, (256, 2)), rng.uniform(-2, 4, (256, 1))].astype(np.float32)
+    u = rng.normal(size=(256, 3))
+    q = (r + 1e-5 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32)
+    d_w, i_w = knn_bruteforce_pallas(jnp.asarray(q), jnp.asarray(r), q_tile=64, r_tile=128,
+                                     interpret=True)
+    d_g, i_g = tkb.knn_brute(torch.tensor(q), torch.tensor(r))
+    np.testing.assert_array_equal(i_g.numpy(), np.asarray(i_w))
+    np.testing.assert_array_equal(d_g.numpy().view(np.int32), np.asarray(d_w).view(np.int32))
+    assert (d_g < 0).sum() > 10 and (np.asarray(d_w) < 0).sum() > 10
+
+
+def test_knn_brute_plain_all_padded_reference_matches_pallas(rng):
+    """An empty cloud's ``padded_xyz()``: every row at ``PAD_COORD``; the
+    first row wins, at the pad's distance, as in the Pallas kernel."""
+    q = rng.uniform(-40, 40, size=(70, 3)).astype(np.float32)
+    r = np.full((128, 3), PAD_COORD, np.float32)
+    d_w, i_w = knn_bruteforce_pallas(jnp.asarray(q), jnp.asarray(r), q_tile=64, r_tile=128,
+                                     interpret=True)
+    d_g, i_g = tkb.knn_brute(torch.tensor(q), torch.tensor(r))
+    assert (i_g == 0).all()
+    np.testing.assert_array_equal(i_g.numpy(), np.asarray(i_w))
+    np.testing.assert_array_equal(d_g.numpy().view(np.int32), np.asarray(d_w).view(np.int32))
 
 
 def test_knn_brute_ties_and_empty_reference():

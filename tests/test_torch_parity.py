@@ -1,4 +1,4 @@
-"""Two roundings of the JAX package that the port reproduces, on crafted
+"""Three roundings of the JAX package that the port reproduces, on crafted
 float32 inputs, on the CPU.
 
 (a) Under ``jax.jit`` with a static config, a voxel or cell size is a
@@ -17,6 +17,10 @@ and the sums of squares fused multiply-add chains on the CPU. A crafted
 near-tie where direct differences rank otherwise: the port's ids equal
 JAX's at k = 1 and k = 8; and ``estimate_normals``' neighbours equal JAX's
 on every row of the odometry tests' scans.
+
+(c) XLA's CPU reduction sums windows of 32, left to right, then the window
+sums: the port's ``masked_centroid(xla_order=True)``, the brute matchers'
+centroid, sums in that order.
 """
 
 import dataclasses
@@ -38,6 +42,7 @@ from open3d_slam_private_tpu_torch.ops import cell_list as tcl
 from open3d_slam_private_tpu_torch.ops import grid_hash as tgh
 from open3d_slam_private_tpu_torch.ops import knn as tknn
 from open3d_slam_private_tpu_torch.ops import normals as tnm
+from open3d_slam_private_tpu_torch.ops import pointcloud as tpc
 from open3d_slam_private_tpu_torch.slam import mapper as tmapper
 from open3d_slam_private_tpu_torch.slam import odometry as todo
 from tests.test_torch_odometry import pose, scan_at, scene
@@ -179,6 +184,14 @@ def test_map_reference_cell_list_matches_jax():
     assert not np.array_equal(trows.numpy().view(np.int32), np.asarray(rows).view(np.int32))
 
 
+def _direct_sq_dists(q, r):
+    """``[n, m]`` squared distances by direct differences,
+    ``(dx*dx + dy*dy) + dz*dz``, each step rounded to float32."""
+    d = q[:, None, :] - r[None, :, :]
+    d2 = d * d
+    return (d2[..., 0] + d2[..., 1]) + d2[..., 2]
+
+
 def _near_tie(seed=1):
     """A query at map coordinates and 10 reference points at 0.5 m +- 1e-6,
     where ranking by direct differences and by the expansion disagree on
@@ -190,7 +203,7 @@ def _near_tie(seed=1):
         u = r.normal(size=(10, 3))
         u /= np.linalg.norm(u, axis=1, keepdims=True)
         ref = (q + u * (0.5 + 1e-6 * r.normal(size=(10, 1)))).astype(f32)
-        direct = tknn.sq_dist_matrix(qt, torch.tensor(ref))[0].numpy()
+        direct = _direct_sq_dists(qt, torch.tensor(ref))[0].numpy()
         od = np.lexsort((np.arange(10), direct))
         rt = torch.tensor(ref)
         exp = tknn.expansion_sq_dists(qt, rt, tknn.sq_norms(qt), tknn.sq_norms(rt))[0].numpy()
@@ -241,10 +254,29 @@ def test_normals_neighbours_match_jax(rng):
 def _direct_knn(xyz, mask, k, radius):
     """The k nearest by direct differences (first index among equals),
     -1 beyond ``radius``: the ranking the port used before."""
-    d2 = torch.where(mask[None, :], tknn.sq_dist_matrix(xyz, xyz), torch.inf)
+    d2 = torch.where(mask[None, :], _direct_sq_dists(xyz, xyz), torch.inf)
     ids = []
     for _ in range(k):
         best, arg = d2.min(-1, keepdim=True)
         ids.append(torch.where((best <= radius * radius) & mask[:, None], arg, -1))
         d2.scatter_(-1, arg, torch.inf)
     return torch.cat(ids, -1).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(20,), (1000,), (8192,), (70_000,), (3, 1000)])
+def test_masked_centroid_matches_jax(rng, shape):
+    """(c) The reference's centroid, bit for bit: XLA sums windows of 32
+    left to right, then the window sums the same way; a sum in any other
+    order parts from it in the last bit, and the brute-force matcher's
+    expansion turns that bit into other near-tie picks."""
+    xyz = np.c_[rng.uniform(-40, 40, shape + (2,)).reshape(-1, 2),
+                rng.uniform(0, 4, shape + (1,)).reshape(-1, 1)].reshape(shape + (3,)).astype(f32)
+    mask = rng.uniform(size=shape) < 0.8
+    jb = jpc.PointBatch(xyz=jnp.asarray(xyz), mask=jnp.asarray(mask))
+    want = np.asarray(jax.jit(jpc.masked_centroid)(jb))
+    np.testing.assert_array_equal(want.view(np.int32), np.asarray(jpc.masked_centroid(jb)).view(np.int32))
+    tb = tpc.PointBatch(xyz=torch.tensor(xyz), mask=torch.tensor(mask))
+    got = tpc.masked_centroid(tb, xla_order=True).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if shape[-1] >= 1000:  # PyTorch's own sum parts
+        assert not np.array_equal(tpc.masked_centroid(tb).numpy(), got)
