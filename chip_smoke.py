@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from ``open3d_slam_private_tpu_torch/csrc``
+Builds the six CUDA libraries from ``open3d_slam_private_tpu_torch/csrc``
 (one nvcc per source, all started together; sm_90a, into
 ``build/torch_kernels/``) and holds each kernel against its plain PyTorch
 version at its main path's shapes, with its wrapper time (CUDA events), its
@@ -12,21 +12,28 @@ over the card's memory rate or operations over its FP32 rate, the larger)
 and, where one PyTorch call computes the same function, that call's time. K1
 and K3 are also held to bit-identical reruns; K2 also meets its checks on
 inputs that stress its grouping by row (one row, distinct rows, row indices
-out of range, every query masked, an empty row); K5 is also held on a
+out of range, every query masked, an empty row), and K4's table entry is
+held bit for bit on the same stresses in K4's contract; K5 is also held on a
 map-scale near-tie set and timed at the relocalisation burst's 2,097,152 x
-65,536, with its plan (queries a thread, reference splits). Then it drives
-the port's
+65,536, with its plan (queries a thread, reference splits); normal_eq (the
+normal equations in an order fixed by a problem's size) is held against the
+float64 einsum and to giving a problem the same bits alone as in its batch.
+Then it drives the port's
 paths through their user entry points: the ``SlamPipeline`` (LiDAR odometry
 -> mapper -> submap collection, loop closure off) over a 96-scan synthetic
 drive of 28.5 m that crosses the 20 m submap creation radius; the ``Mapper``
 over a 30-scan sequence; a batch of 8 scan-to-map registrations
 (``icp_batch``) with the gather kernel off and on, at knn = 8 (K3) and with
-the rank-select kernel (K4); ``register_pair`` on the reference-exact
+the rank-select kernel (K4's table entry; K4's rows entry, the Pallas
+kernel's contract, is on no path and is only held and timed);
+``register_pair`` on the reference-exact
 per-iteration chain with the grid, brute and brute_pallas (K5) matchers; and
 ``register_hypotheses``, the relocalisation burst of 4,096 seeds, with the
 grid and brute_pallas matchers (the timed K5 leg rerun with each K5 call
-held against the plain version, and on 64 seeds against the same chain
-with K5's plain version). Each path runs with every launch count set to 0 just
+held against the plain version, on 64 seeds against the same chain
+with K5's plain version, and its first 64 poses held to the 64-seed chain's
+bits; where they part, ``tests/torch_batch_dependence.py`` names the first
+operation that does). Each path runs with every launch count set to 0 just
 before it and read just after; the pipeline's profiled scans also give K1's
 device time per launch at the SLAM step's shapes. Data come from fixed numpy
 seeds. Every phase prints a line; any failure raises and exits non-zero. The
@@ -35,8 +42,8 @@ it exits non-zero before printing any result.
 
     python3 chip_smoke.py --side DIR
 
-runs the phases a change to K5 moves from the checkout at ``DIR`` (see
-:func:`compare_side`).
+runs the phases that compare two checkouts, from the checkout at ``DIR``
+(see :func:`compare_side`).
 """
 
 from __future__ import annotations
@@ -62,15 +69,18 @@ HYPOTHESES = 4096
 SKELETON_POINTS = 512
 KERNEL_MODULES = {  # library name -> wrapper module
     "pair_gn": "pair_gn", "gather_select": "gather_select", "pair_gn_k": "pair_gn",
-    "rank_select": "select", "knn_brute": "knn_brute",
+    "rank_select": "select", "knn_brute": "knn_brute", "normal_eq": "normal_eq",
 }
+_GROUPED = ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
+            "gather_select_scatter", "gather_select_rank")
 DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
     "pair_gn": ("pair_gn_fused",),
-    "gather_select": ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
-                      "gather_select_scatter", "gather_select_rank"),
+    "gather_select": _GROUPED,
     "pair_gn_k": ("pair_gn_k_partial", "pair_gn_k_final"),
     "rank_select_rows": ("rank_select_kernel",),
+    "rank_select_table": _GROUPED,
     "knn_brute": ("knn_brute_pack", "knn_brute_kernel", "knn_brute_merge"),
+    "normal_eq": ("normal_eq_partial", "normal_eq_final"),
 }
 # Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -82,6 +92,10 @@ PAIR_GN_FLOPS = 106
 # Per candidate of K2/K4: 3 differences, 3 squares, 2 sums; per pair of K5:
 # the 3 products and 2 sums of the dot, the -2 scaling and 2 sums.
 D2_FLOPS = 8
+# Per pair of normal_eq: the difference (3) and residual (5), the cross
+# product (9), the weighted columns (6), the 21 + 6 products and sums of A
+# and b (54).
+NORMAL_EQ_FLOPS = 77
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +256,8 @@ def headline_setup(dev):
     c = ref.cloud
     cloud = pc.PointBatch(xyz=torch.where(c.mask[:, None], c.xyz + ref.centroid, c.xyz),
                           mask=c.mask, extras=dict(c.extras))
-    return dict(cfg=xicp_cfg, scene=scene, ref=ref, ref_cloud=cloud, readings=pc.stack(scans),
-                init=init, T_trues=np.stack(T_trues))
+    return dict(cfg=xicp_cfg, scene=scene, ref=ref, ref_cloud=cloud,
+                readings=pc.stack(scans), init=init, T_trues=np.stack(T_trues))
 
 
 def bound(nbytes, flops):
@@ -366,6 +380,23 @@ def _check_gather_select(table, h, q, m):
                 max_abs_err=err)
 
 
+def grouped_select_bytes(h, m, cap, slot_bytes, winner_bytes):
+    """The bytes K2 or K4's table entry must move in one call: ``slot_bytes``
+    of every slot of each row an unmasked query touches (what ranking and
+    occupancy read), the occupancy word (4 B) of every slot of a row only
+    masked queries touch, and per query its row index, xyz and mask byte,
+    ``winner_bytes`` of the winner's payload beyond those words, and its
+    64-byte output row. Also the sector floor of reading each touched row
+    whole (32 B a slot: a slot's words share its 32-byte sectors)."""
+    rows_valid = int(torch.unique(h[m.bool()]).numel())
+    rows_all = int(torch.unique(h).numel())
+    n = h.shape[0]
+    per_query = 4 + 12 + 1 + 64
+    nbytes = rows_valid * cap * slot_bytes + (rows_all - rows_valid) * cap * 4 + n * (per_query + winner_bytes)
+    floor_ms = bound(rows_all * cap * 32 + n * per_query, 0)["bound_ms"]
+    return dict(bytes=nbytes, rows_touched=rows_all, sector_floor_ms=floor_ms)
+
+
 def k2_row_sharing(h, table_size, run=256):
     """How K2's queries share rows: distinct rows per run of ``run``
     consecutive queries (mean, max), and queries per touched row (mean,
@@ -401,19 +432,24 @@ def headline_row_sharing(dev=None):
     return stats
 
 
-def _gather_select_adversarial(table, h, q, m):
-    """K2 on inputs that stress its grouping, built from the headline's:
+def stress_cases(table, h, q, m, by_coords=False):
+    """Inputs that stress the grouping by row, built from the headline's:
     every query in one row (2,048 blocks' worth), the first T queries each
-    in its own row, every 7th row index negative and every 7th (offset 3)
-    past the table, every query masked, half the queries in a row whose
-    slots are all empty. Returns each case's agreement."""
+    in its own row, every query masked, half the queries in a row whose
+    slots are all empty and, in K2's contract only, every 7th row index
+    negative and every 7th (offset 3) past the table. An empty row has ids
+    -1 in K2's contract and the padding payload (xyz 1e9) in K4's
+    (``by_coords``), where a row index outside [0, T) is outside the
+    contract."""
+    from open3d_slam_private_tpu_torch.ops.grid_hash import empty_payload
+
     T, n = table.shape[0], h.shape[0]
     gen = torch.Generator(device=h.device).manual_seed(11)
-    oob = h.clone()
-    oob[::7] = -1 - torch.arange(oob[::7].numel(), device=h.device, dtype=torch.int32)
-    oob[3::7] = T + torch.arange(oob[3::7].numel(), device=h.device, dtype=torch.int32)
     emptied = table.clone()
-    emptied.view(torch.int32)[int(h[0]), :, 3] = -1
+    if by_coords:
+        emptied[int(h[0])] = empty_payload(table.shape[1], h.device)
+    else:
+        emptied.view(torch.int32)[int(h[0]), :, 3] = -1
     half = h.clone()
     half[: n // 2] = h[0]
     k = min(n, T)
@@ -421,11 +457,15 @@ def _gather_select_adversarial(table, h, q, m):
         "one_row": (table, torch.full_like(h, int(h[0])), q, m),
         "distinct_rows": (table, torch.randperm(T, generator=gen, device=h.device)[:k].to(torch.int32),
                           q[:k].contiguous(), m[:k].contiguous()),
-        "out_of_range": (table, oob, q, m),
         "all_masked": (table, h, q, torch.zeros_like(m)),
         "empty_row": (emptied, half, q, m),
     }
-    return {name: _check_gather_select(*args) for name, args in cases.items()}
+    if not by_coords:
+        oob = h.clone()
+        oob[::7] = -1 - torch.arange(oob[::7].numel(), device=h.device, dtype=torch.int32)
+        oob[3::7] = T + torch.arange(oob[3::7].numel(), device=h.device, dtype=torch.int32)
+        cases["out_of_range"] = (table, oob, q, m)
+    return cases
 
 
 def phase_kernels(hs):
@@ -455,17 +495,18 @@ def phase_kernels(hs):
     q = src0.reshape(-1, 3).contiguous()
     m = readings.mask.reshape(-1).contiguous()
     check = _check_gather_select(grid.table, h, q, m)
-    adversarial = _gather_select_adversarial(grid.table, h, q, m)
+    adversarial = {name: _check_gather_select(*args)
+                   for name, args in stress_cases(grid.table, h, q, m).items()}
     say("kernel_check", name="gather_select", **{k: v["id_agreement"] for k, v in adversarial.items()})
-    # Bytes: each query's hash, xyz and mask byte, each row the valid
-    # queries touch once (48 slots x 8 channels), 16 floats out a query.
-    rows_touched = int(torch.unique(h[m]).numel())
+    # Bytes: a slot's xyz and id (rank and occupancy), the winner's normal.
+    need = grouped_select_bytes(h, m, cap, slot_bytes=16, winner_bytes=12)
     sharing = k2_row_sharing(h, grid.table_size)
     k2 = timed("gather_select", lambda: gsk.gather_select(grid.table, h, q, m),
                lambda: gsk.gather_select_plain(grid.table, h, q, m),
-               B * N * 17 + rows_touched * cap * 32 + B * N * 64, int(m.sum()) * cap * D2_FLOPS)
+               need["bytes"], int(m.sum()) * cap * D2_FLOPS)
     say("kernel", name="gather_select", queries=B * N, table=list(grid.table.shape),
-        rows_touched=rows_touched, row_sharing=sharing, **check, **k2,
+        rows_touched=need["rows_touched"], sector_floor_ms=need["sector_floor_ms"],
+        row_sharing=sharing, **check, **k2,
         adversarial_id_agreement={k: v["id_agreement"] for k, v in adversarial.items()})
     results.append(dict(
         name="gather_select", route="cuda",
@@ -502,7 +543,9 @@ def phase_kernels(hs):
 
     results.append(_check_pair_gn_k(ref, readings, cfg, T, src0))
     results.append(_check_rank_select(grid, h, q, m))
+    results.append(_check_rank_select_table(grid, h, q, m))
     results.append(_check_knn_brute(ref, src0))
+    results.append(_check_normal_eq(ref, readings, cfg, src0))
     return results
 
 
@@ -533,8 +576,10 @@ def _check_pair_gn_k(ref, readings, cfg, T, src0):
 
 
 def _check_rank_select(grid, h, q, m):
-    """K4: rank + select over the B x N query rows of the headline table,
-    gathered beforehand."""
+    """K4's rows entry, the Pallas kernel's contract: rank + select over the
+    B x N query rows of the headline table, gathered beforehand. No path
+    of the port launches it: the select leg reads the rows in place
+    (:func:`_check_rank_select_table`)."""
     from open3d_slam_private_tpu_torch.kernels import select as selk
 
     rows = grid.table.reshape(grid.table_size, -1)[h.long()]
@@ -548,22 +593,168 @@ def _check_rank_select(grid, h, q, m):
     if not (agree == 1.0 and bitwise == 1.0):
         raise RuntimeError(f"rank_select_rows disagrees with its plain version: id agreement "
                            f"{agree}, bitwise rows {bitwise}")
-    # Bytes: xyz + id of every slot of a row (the normals of the winner
-    # only), the query and its mask, 16 floats out. The sector floor is
-    # noted beside it: each 32-byte slot of the [N, cap * 8] rows
-    # interleaves xyz and id with the normal, and DRAM moves 32-byte
-    # sectors, so this layout moves the whole tensor.
-    n, cap = rows.shape[0], grid.list_cap
+    # Bytes: the xyz of every slot of an unmasked query's row (the x alone
+    # of a masked one's, for the occupancy), the winner's id and normal,
+    # the query and its mask, 16 floats out. The sector floor is noted
+    # beside it: each 32-byte slot of the [N, cap * 8] rows interleaves xyz
+    # and id with the normal, and DRAM moves 32-byte sectors, so this layout
+    # moves the whole tensor.
+    n, cap, valid = rows.shape[0], grid.list_cap, int(m.sum())
     t = timed("rank_select_rows", lambda: selk.rank_select_rows(rows, q, m),
               lambda: selk.rank_select_rows_plain(rows, q, m),
-              n * (cap * 16 + 12 + 12 + 1 + 64), int(m.sum()) * cap * D2_FLOPS, plain_reps=5)
+              valid * cap * 12 + (n - valid) * cap * 4 + n * (16 + 12 + 1 + 64),
+              valid * cap * D2_FLOPS, plain_reps=5)
     floor_ms = bound(n * (cap * 32 + 12 + 1 + 64), 0)["bound_ms"]
+    # The rows' producer, the torch gather the parent's select leg ran
+    # before K4's rows entry.
+    gather_us = session_device_us(lambda: grid.table.reshape(grid.table_size, -1)[h.long()], reps=5)
     say("kernel", name="rank_select_rows", queries=n, table=list(grid.table.shape),
-        id_agreement=agree, bitwise_rows=bitwise, max_abs_err=err, sector_floor_ms=floor_ms, **t)
+        id_agreement=agree, bitwise_rows=bitwise, max_abs_err=err, sector_floor_ms=floor_ms,
+        producer_gather_device_us=gather_us, **t)
     return dict(name="rank_select_rows", route="cuda",
                 source="open3d_slam_private_tpu_torch/csrc/rank_select.cu",
                 replaces="open3d_slam_private_tpu/kernels/select_pallas.py:117",
-                max_abs_err=err, **t)
+                max_abs_err=err, producer_gather_device_us=gather_us, **t)
+
+
+def session_device_us(fn, reps=10):
+    """Device microseconds per call of ``fn``: every device-side event of
+    a ``torch.profiler`` session of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return profiled_device_ms(prof)[0] * 1e3 / reps
+
+
+def _check_rank_select_table(grid, h, q, m):
+    """K4's table entry: the headline round's queries against the cell list
+    read in place, and :func:`stress_cases` in K4's contract, each held bit
+    for bit against the plain version (the rows gathered, then K4's plain
+    rank)."""
+    from open3d_slam_private_tpu_torch.kernels import select as selk
+
+    table = grid.table
+    cap, n = table.shape[1], h.shape[0]
+    cases = dict(headline=(table, h, q, m), **stress_cases(table, h, q, m, by_coords=True))
+    bitwise, err = {}, 0.0
+    for name, args in cases.items():
+        got, want = selk.rank_select_table(*args), selk.rank_select_table_plain(*args)
+        torch.cuda.synchronize()
+        bitwise[name] = float((got.view(torch.int32) == want.view(torch.int32)).all(1).float().mean())
+        if bitwise[name] != 1.0:
+            raise RuntimeError(f"rank_select_table disagrees with its plain version on {name}: "
+                               f"bitwise rows {bitwise[name]}")
+        if name == "headline":
+            err = float((got - want).abs().nan_to_num(0.0).max())
+    del cases
+    say("kernel_check", name="rank_select_table", **bitwise)
+    # Bytes: a slot's xyz (rank; x is the occupancy), the winner's id and
+    # normal.
+    need = grouped_select_bytes(h, m, cap, slot_bytes=12, winner_bytes=16)
+    t = timed("rank_select_table", lambda: selk.rank_select_table(table, h, q, m),
+              lambda: selk.rank_select_table_plain(table, h, q, m),
+              need["bytes"], int(m.sum()) * cap * D2_FLOPS, plain_reps=5)
+    say("kernel", name="rank_select_table", queries=n, table=list(table.shape),
+        rows_touched=need["rows_touched"], sector_floor_ms=need["sector_floor_ms"],
+        bitwise_rows=bitwise, max_abs_err=err, **t)
+    return dict(name="rank_select_table", route="cuda",
+                source="open3d_slam_private_tpu_torch/csrc/gather_select.cu",
+                replaces="open3d_slam_private_tpu/kernels/select_pallas.py:117",
+                max_abs_err=err, bitwise_rows=bitwise, **t)
+
+
+def _normal_eq_fp64(src, q, n, w):
+    """The plain version's function in float64 (A, b) and the same sums of
+    its terms' magnitudes (the scale of each entry)."""
+    p = src.double()[:, :, None, :].expand(q.shape)
+    nn = n.double()
+    cols = torch.cat([torch.linalg.cross(p, nn), nn], -1)
+    r = ((p - q.double()) * nn).sum(-1)
+    cw = cols * w.double()[..., None]
+    return (torch.einsum("bnki,bnkj->bij", cw, cols), -torch.einsum("bnki,bnk->bi", cw, r),
+            torch.einsum("bnki,bnkj->bij", cw.abs(), cols.abs()),
+            torch.einsum("bnki,bnk->bi", cw.abs(), r.abs()))
+
+
+def _check_normal_eq(ref, readings, cfg, src0):
+    """normal_eq: the X-ICP detection's normal equations on the headline
+    batch matched at knn = 8 (8 x 65,536 x 8 pairs, the round's frozen trim
+    weights), and at the relocalisation burst's 4,096 x 512 x 1 (the same
+    pairs, knn = 1, four times over). Held against the float64 einsum
+    within 1e-5 of each entry's scale; a rerun and each problem run alone
+    (the first three as a batch of 1) give the same bits; timed against the
+    plain float32 einsum (its two cuBLAS einsums alone are ``library_ms``)."""
+    from open3d_slam_private_tpu_torch.kernels import normal_eq as nek
+    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+    from open3d_slam_private_tpu_torch.ops import cell_list as cell_mod
+    from open3d_slam_private_tpu_torch.ops.grid_hash import match_from_candidates
+    from open3d_slam_private_tpu_torch.ops.outliers import trimmed_dist_limit
+
+    rows, valid = cell_mod.gather_cell_candidates(ref.grid, src0, readings.mask)
+    res = match_from_candidates(rows, valid, src0, readings.mask, cfg.max_match_dist, 8)
+    del rows, valid
+    tau = trimmed_dist_limit(res.dists, res.valid(), cfg.trimmed_ratio, cfg.max_match_dist**2)
+    w = icp_mod._weights(res, cfg, trim_limit=tau)
+    knn8 = (src0.contiguous(), res.xyz.contiguous(), res.normals.contiguous(), w.contiguous())
+    del res
+    S = SKELETON_POINTS
+    reps = HYPOTHESES * S // (src0.shape[0] * src0.shape[1])
+    first = (knn8[0].reshape(-1, S, 3), knn8[1][:, :, 0].reshape(-1, S, 1, 3),
+             knn8[2][:, :, 0].reshape(-1, S, 1, 3), knn8[3][:, :, 0].reshape(-1, S, 1))
+    burst = tuple(x.repeat(reps, *([1] * (x.dim() - 1))).contiguous() for x in first)
+    out = {}
+    for shape, args in (("8x65536x8", knn8), (f"{HYPOTHESES}x{SKELETON_POINTS}x1", burst)):
+        B, N, K = args[3].shape
+        A, b = nek.normal_eq(*args)
+        A2, b2 = nek.normal_eq(*args)
+        alone = [nek.normal_eq(*(x[i:i + 1].contiguous() for x in args)) for i in range(min(3, B))]
+        torch.cuda.synchronize()
+        same = lambda x, y: torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+        if not (same(A, A2) and same(b, b2)):
+            raise RuntimeError(f"normal_eq at {shape}: two calls gave different bits")
+        if not all(same(A[i:i + 1], a) and same(b[i:i + 1], bb) for i, (a, bb) in enumerate(alone)):
+            raise RuntimeError(f"normal_eq at {shape}: a problem alone differs from it in the batch")
+        A64, b64, sA, sb = _normal_eq_fp64(*args)
+        worst = max(float(((A.double() - A64).abs() / (1e-5 * (sA + 1.0))).max()),
+                    float(((b.double() - b64).abs() / (1e-5 * (sb + 1.0))).max()))
+        if worst > 1.0:
+            raise RuntimeError(f"normal_eq at {shape} disagrees with the fp64 einsum "
+                               f"({worst:.3g} x tolerance)")
+        del A64, b64, sA, sb
+        pA, pb = nek.normal_eq_plain(*args)
+        err = max(float((A - pA).abs().max()), float((b - pb).abs().max()))
+        p = args[0][:, :, None, :].expand(args[1].shape)
+        cols = torch.cat([torch.linalg.cross(p, args[2]), args[2]], -1)
+        r = ((p - args[1]) * args[2]).sum(-1)
+        cw = cols * args[3][..., None]
+
+        def library(cw=cw, cols=cols, r=r):  # the plain version's two cuBLAS einsums alone
+            return torch.einsum("...nmi,...nmj->...ij", cw, cols), torch.einsum("...nmi,...nm->...i", cw, r)
+
+        # Bytes: each point, each pair's weight, the match and normal of a
+        # weighted pair only (the kernel skips a pair of weight 0, which adds
+        # nothing), A and b out; operations of the weighted pairs. The
+        # sector floor of reading every pair's match and normal beside it.
+        weighted = int((args[3] != 0).sum())
+        t = timed("normal_eq", lambda a=args: nek.normal_eq(*a), lambda a=args: nek.normal_eq_plain(*a),
+                  B * N * 12 + B * N * K * 4 + weighted * 24 + B * 42 * 4, weighted * NORMAL_EQ_FLOPS,
+                  library_fn=library, plain_reps=5)
+        del cols, r, cw
+        floor_ms = bound(B * N * 12 + B * N * K * 28 + B * 42 * 4, 0)["bound_ms"]
+        out[shape] = dict(worst_over_tolerance=worst, max_abs_err=err, weighted_pairs=weighted,
+                          pairs=B * N * K, sector_floor_ms=floor_ms, bit_identical_rerun=True,
+                          batch_independent=True, **t)
+        say("kernel", name="normal_eq", shape=shape, **out[shape])
+    main = {k: v for k, v in out["8x65536x8"].items() if k != "worst_over_tolerance"}
+    return dict(name="normal_eq", route="cuda", source="open3d_slam_private_tpu_torch/csrc/normal_eq.cu",
+                replaces="open3d_slam_private_tpu/models/minimizers.py:65",
+                replaces_note="an XLA computation of the JAX package, not a Pallas kernel",
+                shape="8x65536x8", **main, at_burst=out[f"{HYPOTHESES}x{SKELETON_POINTS}x1"])
 
 
 def cdist_min(q, r, chunk=8192):
@@ -669,12 +860,17 @@ def _check_knn_brute(ref, src0):
             raise RuntimeError(f"knn_brute at the burst's shape: repeat {k} of the queries differs")
     del d2b, idsb, qu
     burst_us, _ = device_us_per_call(lambda: kbk.knn_brute(qb, refp), DEVICE_KERNELS["knn_brute"], reps=3)
+    # The yardstick at this shape would take minutes: timed on a fixed 1/32
+    # of the queries (the first 65,536) and scaled by 32.
+    part = qb[: nb // 32].contiguous()
+    lib_scaled = 32 * cuda_ms(lambda: cdist_min(part, refp), reps=1, rounds=1)
     burst = dict(queries=nb, reference=nr, plan=kbk.knn_brute_plan(nb, nr, q.device),
                  held=burst_check, device_us=burst_us, ms=cuda_ms(lambda: kbk.knn_brute(qb, refp), reps=3, rounds=3),
+                 library_ms=lib_scaled, library_ms_scaled_from="1/32 of the queries, times 32",
                  **bound(nb * 12 + nr * 12 + nb * 8, nb * nr * D2_FLOPS))
     burst["bound_share"] = burst["bound_ms"] * 1e3 / burst_us if burst_us else None
     say("kernel", name="knn_brute", shape="burst", **burst)
-    del qb
+    del qb, part
     return dict(name="knn_brute", route="cuda",
                 source="open3d_slam_private_tpu_torch/csrc/knn_brute.cu",
                 replaces="open3d_slam_private_tpu/kernels/knn_pallas.py:78",
@@ -932,11 +1128,12 @@ def phase_pipeline(dev, cfg=None):
 
 
 def _counters():
-    from open3d_slam_private_tpu_torch.kernels import gather_select, knn_brute, pair_gn, select
+    from open3d_slam_private_tpu_torch.kernels import gather_select, knn_brute, normal_eq, pair_gn, select
 
     return dict(pair_gn=pair_gn.pair_gn, gather_select=gather_select.gather_select,
                 pair_gn_k=pair_gn.pair_gn_k, rank_select_rows=select.rank_select_rows,
-                knn_brute=knn_brute.knn_brute)
+                rank_select_table=select.rank_select_table, knn_brute=knn_brute.knn_brute,
+                normal_eq=normal_eq.normal_eq)
 
 
 def reset_counts():
@@ -960,14 +1157,16 @@ def pose_errors(T, T_true):
 def phase_headline(hs):
     """Bench headline: B=8 scan-to-map registrations on the cached rounds,
     with the gather kernel off and on, at knn = 8 (K3 instead of K1) and
-    with the rank-select kernel (K4). Returns each leg's launch counts."""
+    with the rank-select kernel (K4's table entry). Each leg's X-ICP
+    detection goes through normal_eq. Returns each leg's launch counts."""
     from open3d_slam_private_tpu_torch.models import icp as icp_mod
 
     dev = hs["init"].device
     legs = dict(rerank=dict(), gather=dict(gather_kernel=True), knn8=dict(knn=8),
                 select=dict(select_kernel=True))
-    need = dict(rerank=("pair_gn",), gather=("pair_gn", "gather_select"), knn8=("pair_gn_k",),
-                select=("pair_gn", "rank_select_rows"))
+    need = dict(rerank=("pair_gn", "normal_eq"), gather=("pair_gn", "gather_select", "normal_eq"),
+                knn8=("pair_gn_k", "normal_eq"), select=("pair_gn", "rank_select_table", "normal_eq"))
+    never = dict(knn8=("pair_gn",), select=("rank_select_rows", "gather_select"))
     counts = {}
     for leg, change in legs.items():
         cfg = dataclasses.replace(hs["cfg"], **change)
@@ -996,8 +1195,8 @@ def phase_headline(hs):
             raise RuntimeError(f"headline {leg} registration error: trans {terr} rot {rerr}")
         if any(counts[leg][k] <= 0 for k in need[leg]):
             raise RuntimeError(f"headline {leg} missed a kernel: {counts[leg]}")
-        if leg == "knn8" and counts[leg]["pair_gn"] != 0:
-            raise RuntimeError(f"headline knn8 ran K1: {counts[leg]}")
+        if any(counts[leg][k] != 0 for k in never.get(leg, ())):
+            raise RuntimeError(f"headline {leg} ran a kernel of another leg: {counts[leg]}")
     return counts
 
 
@@ -1046,12 +1245,11 @@ def _hold_hypotheses_k5(icp_mod, skel, ref_cloud, seeds, cfg, T):
     call on all its queries, the others on their first 65,536), and its
     poses compared with the timed run's bits. (2) The chain on the first 64
     seeds with the kernel and with K5's plain version in its place, held to
-    each other (1e-4 m / rad): a batch of 64 against a batch of 64, since
-    the chain's result for a seed moves with the batch size, through other
-    operations than K5. (3) Reported: the timed leg's first 64 poses
-    against the 64-seed chain's. The "brute" matcher clamps the expansion
-    at 0 as the JAX package's does and K5 does not, so the caller reports,
-    not holds, its distance from the 64-seed chain."""
+    each other (1e-4 m / rad). (3) The timed leg's first 64 poses against
+    the 64-seed chain's: a problem's result must not depend on the batch it
+    runs in, so the caller holds them to 0.0 m. The "brute" matcher clamps
+    the expansion at 0 as the JAX package's does and K5 does not, so the
+    caller reports, not holds, its distance from the 64-seed chain."""
     from open3d_slam_private_tpu_torch.kernels.knn_brute import knn_brute_plain
 
     kernel, calls = icp_mod.knn_brute, []
@@ -1087,14 +1285,11 @@ def _hold_hypotheses_k5(icp_mod, skel, ref_cloud, seeds, cfg, T):
                 batch_4096_vs_64_seeds_beyond_0_1_mm=int(np.sum(np.asarray(st) > 1e-4)), few=few)
 
 
-def phase_hypotheses(hs):
-    """The relocalisation burst (``register_hypotheses``): one 512-point
-    skeleton scan, 4,096 seeds (+-0.1 rad, +-2 m) around the truth (the
-    identity), the light chain without coarse stage or candidate caching,
-    against the headline's reference cloud; a grid leg and a brute_pallas
-    (K5) leg, checked by :func:`_hold_hypotheses_k5`. Returns each leg's
-    launch counts."""
-    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+def hypotheses_setup(hs):
+    """The relocalisation burst's inputs: one 512-point skeleton scan of the
+    headline's scene, 4,096 seeds (+-0.1 rad, +-2 m) around the truth (the
+    identity) and the light chain's config (no coarse stage, no candidate
+    caching, no degeneracy handling). Returns (skeleton, seeds, config)."""
     from open3d_slam_private_tpu_torch.ops import pointcloud as pc
 
     dev = hs["init"].device
@@ -1107,6 +1302,18 @@ def phase_hypotheses(hs):
     rngh = np.random.default_rng(5)
     twists = np.c_[rngh.uniform(-0.1, 0.1, (HYPOTHESES, 3)), rngh.uniform(-2, 2, (HYPOTHESES, 3))]
     seeds = torch.as_tensor(exp_se3_np(twists), dtype=torch.float32, device=dev)
+    return skel, seeds, hyp_cfg
+
+
+def phase_hypotheses(hs):
+    """The relocalisation burst (``register_hypotheses``) of
+    :func:`hypotheses_setup` against the headline's reference cloud; a grid
+    leg and a brute_pallas (K5) leg, checked by :func:`_hold_hypotheses_k5`.
+    Returns each leg's launch counts."""
+    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+
+    dev = hs["init"].device
+    skel, seeds, hyp_cfg = hypotheses_setup(hs)
     out = {}
     for matcher in ("grid", "brute_pallas"):
         cfg = dataclasses.replace(hyp_cfg, matcher=matcher)
@@ -1136,17 +1343,22 @@ def phase_hypotheses(hs):
             say("hypotheses_k5_vs_plain", seeds=int(min(64, HYPOTHESES)), **out_k5,
                 vs_brute_expansion_max_trans_diff_m=max(bt),
                 vs_brute_expansion_seeds_beyond_0_1_mm=int(np.sum(np.asarray(bt) > 1e-4)))
+            if out_k5["batch_4096_vs_64_max_trans_diff_m"] != 0.0:
+                raise RuntimeError("hypotheses brute_pallas: a seed's pose depends on the batch size "
+                                   f"({out_k5['batch_4096_vs_64_max_trans_diff_m']} m); "
+                                   "python3 tests/torch_batch_dependence.py names the first op that parts")
     return out
 
 
 def compare_side(root):
-    """The phases a change to K5 moves, run from the checkout at ``root``
-    with that checkout's own ``chip_smoke.py`` and package: the kernel
-    checks, ``register_pair`` three times, the relocalisation burst, and a
-    ``torch.profiler`` session around one ``register_pair`` brute_pallas
-    call (its host wall against its device time). Run it once per side,
-    each in its own process, all in one call to the card, e.g. parent,
-    change, change, parent::
+    """The phases that compare two checkouts, run from the checkout at
+    ``root`` with that checkout's own ``chip_smoke.py`` and package: the
+    kernel checks, ``register_pair`` three times, a ``torch.profiler``
+    session around one ``register_pair`` brute_pallas call and around one
+    run of the headline's select and knn = 8 legs (host wall against device
+    time), and the relocalisation burst. Run it once per side, each in its
+    own process, all in one call to the card, e.g. parent, change, change,
+    parent::
 
         python3 chip_smoke.py --side build/parent; python3 chip_smoke.py --side .
     """
@@ -1173,20 +1385,30 @@ def compare_side(root):
     from open3d_slam_private_tpu_torch.models import icp as icp_mod
     from open3d_slam_private_tpu_torch.ops.pointcloud import PointBatch
 
+    def profiled(what, fn, **kv):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        device_ms, top = profiled_device_ms(prof)
+        items = sum(e.count for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA)
+        side.say(what, profiled_wall_ms=wall * 1e3, device_ms=device_ms, device_items=items,
+                 top_device_items=top, **kv)
+
     base = icp_mod.ICPConfig(knn=1, max_match_dist=0.5, matcher="brute_pallas", grid_table_size=1 << 16,
                              grid_bucket_cap=48, trimmed_ratio=0.9, max_iterations=30)
     r = hs["readings"]
     reading = PointBatch(xyz=r.xyz[0], mask=r.mask[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        icp_mod.register_pair(reading, hs["ref_cloud"], hs["init"][0], base)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    device_ms, top = profiled_device_ms(prof)
-    launches = sum(e.count for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA)
-    side.say("register_pair_profile", matcher="brute_pallas", profiled_wall_ms=wall * 1e3,
-             device_ms=device_ms, device_items=launches, top_device_items=top)
+    profiled("register_pair_profile",
+             lambda: icp_mod.register_pair(reading, hs["ref_cloud"], hs["init"][0], base),
+             matcher="brute_pallas")
+    for leg, change in (("select", dict(select_kernel=True)), ("knn8", dict(knn=8))):
+        cfg = dataclasses.replace(hs["cfg"], **change)
+        profiled("headline_profile", lambda c=cfg: icp_mod.icp_batch(r, hs["ref"], hs["init"], c),
+                 leg=leg, config=change)
     side.phase_hypotheses(hs)
 
 
@@ -1204,11 +1426,18 @@ def main():
     paths.update({f"headline_{leg}": c for leg, c in phase_headline(hs).items()})
     paths.update({f"register_pair_{m}": c for m, c in phase_register_pair(hs).items()})
     paths.update({f"hypotheses_{m}": c for m, c in phase_hypotheses(hs).items()})
+    # K4's rows entry carries the Pallas kernel's contract and lies on no
+    # path: the select leg reads the rows in place (K4's table entry). Its
+    # launches are those of every path, 0 (the select leg checks it).
     main_path = dict(pair_gn="pipeline", gather_select="headline_gather", pair_gn_k="headline_knn8",
-                     rank_select_rows="headline_select", knn_brute="register_pair_brute_pallas")
+                     rank_select_rows=None, rank_select_table="headline_select",
+                     knn_brute="register_pair_brute_pallas", normal_eq="headline_knn8")
     for k in kernels:
-        k["launches"] = paths[main_path[k["name"]]][k["name"]]
-        k["launches_path"] = main_path[k["name"]]
+        path = main_path[k["name"]]
+        k["launches"] = paths[path][k["name"]] if path else sum(c[k["name"]] for c in paths.values())
+        k["launches_path"] = path
+        if path and k["launches"] <= 0:
+            raise RuntimeError(f"{k['name']} was not launched on its path {path}")
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
         if k["name"] == "pair_gn":
             k["device_us_per_launch_in_pipeline"] = k1_pipeline_us

@@ -1,4 +1,5 @@
-// K2: fused cell-list row gather + rank + select (knn = 1).
+// K2: fused cell-list row gather + rank + select (knn = 1), and K4's
+// contract on the same machinery (the table entry of rank_select).
 //
 // Replaces the TPU kernel gather_select
 // (open3d_slam_private_tpu/kernels/gather_select_pallas.py:207, through
@@ -11,16 +12,25 @@
 //   out[i] = [x, y, z, id bits, nx, ny, nz] of the winner, the minimum d2,
 //            the row's occupancy (slots with id >= 0), 7 zeros   (16 words)
 //   An h_i outside [0, T) gives the INVALID row (id -1, d2 inf, zeros).
+// With by_coords set, the rank kernel takes the contract of K4, the TPU
+// kernel rank_select_rows (open3d_slam_private_tpu/kernels/select_pallas.py:117),
+// on the row table[h_i] read in place instead of gathered beforehand: every
+// slot competes (padded slots carry xyz = 1e9, so they lose to any real
+// candidate and an empty row's d2 stays finite), a masked query sees inf
+// everywhere, occupancy counts the slots whose x < 1e8. The count, rowsum,
+// scan and scatter passes are the same for both contracts.
 //
 // It reads the table in its own [T, cap, 8] layout; the TPU kernel's
 // [T, 8, 128] tiles were a DMA-alignment device and would cost 256 MiB of
 // padding at T = 2^16.
-// What bounds it on an H100: memory. The work needs each row the queries
-// touch read once (cap x 32 B = 1.5 KiB at cap 48), each query's xyz, mask
-// and row index read once and its 64-byte output written: 65.7 MB for the
-// 524,288 queries of a B = 8 x 65,536 round, which touch only 15,148 rows
-// (~35 queries a row). A warp per query that re-reads its row moves 805 MB
-// through L2 instead.
+// What bounds it on an H100: memory. The work needs, of each row the
+// queries touch, its slots' xyz (and ids, in K2's contract) read once, each
+// query's xyz, mask and row index and its winner's remaining payload read
+// once and its 64-byte output written: about 60 MB for the 524,288 queries
+// of a B = 8 x 65,536 round, which touch only 15,148 rows (~35 queries a
+// row). A warp per query that re-reads its row moves 805 MB through L2
+// instead, and K4's rows gathered beforehand move those 805 MB through
+// device memory twice (written by the gather, read by the kernel).
 // Design: group the queries by row, then rank each row's queries from one
 // staged copy of the row. Its pace is then set by random accesses: the
 // grouping's 4-byte atomics and writes, and each grouped query's xyz, mask
@@ -42,14 +52,15 @@
 //            results are bit-identical.
 // - rank:    a grid of warps walks the work items with a grid stride, so
 //            a hot row spreads over several warps. A warp stages the row in shared
-//            memory with 16-byte loads and reads its queries' indices in
-//            grouped order; each lane ranks one query over the staged
-//            candidates (all lanes read the same candidate at once: a
-//            shared-memory broadcast), d2 rounded step by step as
+//            memory with 16-byte loads (once a work item) and reads its
+//            queries' indices in grouped order; each lane ranks one query
+//            over the staged candidates (all lanes read the same candidate
+//            at once: a shared-memory broadcast), d2 rounded step by step as
 //            (dx*dx + dy*dy) + dz*dz, ids read as integer bits; it writes its
 //            16 words at the query's index, the winner's payload copied as
 //            raw words (ids below 2^23 are denormal floats and must never
-//            pass through float arithmetic).
+//            pass through float arithmetic). The contract is the kernel's
+//            template parameter: it changes only how a slot is staged.
 // No library sort or scan. The row counts (zero between calls) and the
 // scratch are buffers the wrapper allocates once per device; calls are
 // issued on one stream, in order.
@@ -194,9 +205,12 @@ gather_select_scatter(const int32_t* __restrict__ h, int n, int table_size, Work
 }
 
 // One warp a work item: the warp stages the row (the raw payload for the
-// winner's copy, and each slot's xyz for ranking, +inf where the slot is
-// empty, so its d2 is inf as the contract sets it), counts the occupancy with
-// one ballot per 32 slots, and each lane ranks one query.
+// winner's copy, and each slot's xyz for ranking), counts the occupancy with
+// one ballot per 32 slots, and each lane ranks one query. K2's contract
+// (kByCoords false) stages +inf for an empty slot, so its d2 is inf, and
+// counts the slots with id >= 0; K4's (kByCoords true) stages every slot's
+// own xyz and counts the slots whose x < 1e8.
+template <bool kByCoords>
 __global__ void __launch_bounds__(kThreads)
 gather_select_rank(const uint4* __restrict__ table, const float* __restrict__ query,
                    const uint8_t* __restrict__ mask, int cap, Work w, uint32_t* __restrict__ out) {
@@ -224,17 +238,22 @@ gather_select_rank(const uint4* __restrict__ table, const float* __restrict__ qu
     int occ = 0;
     for (int c0 = 0; c0 < cap; c0 += 32) {
       const int c = c0 + lane;
-      bool valid = false;
+      bool occupied = false;
       if (c < cap) {
         const uint4 a = src[2 * c], b = src[2 * c + 1];
         s_row[2 * c] = a;
         s_row[2 * c + 1] = b;
-        valid = static_cast<int32_t>(a.w) >= 0;
-        s_xyz[c] = valid ? make_float4(__uint_as_float(a.x), __uint_as_float(a.y),
-                                       __uint_as_float(a.z), 0.f)
-                         : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
+        const float4 xyz = make_float4(__uint_as_float(a.x), __uint_as_float(a.y),
+                                       __uint_as_float(a.z), 0.f);
+        if (kByCoords) {
+          occupied = xyz.x < 1e8f;
+          s_xyz[c] = xyz;
+        } else {
+          occupied = static_cast<int32_t>(a.w) >= 0;
+          s_xyz[c] = occupied ? xyz : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
+        }
       }
-      occ += __popc(__ballot_sync(0xffffffffu, valid));
+      occ += __popc(__ballot_sync(0xffffffffu, occupied));
     }
     const int next = item + stride;
     const int4 it_next = next < n_items ? w.items[next] : make_int4(0, 0, 0, 0);
@@ -269,18 +288,44 @@ gather_select_rank(const uint4* __restrict__ table, const float* __restrict__ qu
   }
 }
 
+// The rank kernel's staging: per warp, a row's raw payload and its xyz.
+size_t rank_smem(int cap) { return static_cast<size_t>(cap) * 48 * kWarpsPerBlock; }
+
+template <bool kByCoords>
+cudaError_t launch_rank(int blocks, cudaStream_t s, const uint4* table, const float* query,
+                        const uint8_t* mask, int cap, Work w, uint32_t* out) {
+  const size_t smem = rank_smem(cap);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_select_rank<kByCoords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  gather_select_rank<kByCoords><<<blocks, kThreads, smem, s>>>(table, query, mask, cap, w, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // table: [T, cap, 8] float32 words (16-byte aligned); h: [N] int32; query:
 // [N, 3] float32; mask: [N] uint8 or bool; count: [T] int32, zero before
 // the call and zero after it; scratch: 16-byte aligned, 2 N + 4 (ceil(N /
 // 32) + T) + T + 2 ceil(T / 1024) + 3 int32 words; out: [N, 16] float32
-// words (16-byte aligned); rank_blocks: the rank kernel's grid.
-// Launches five kernels on `stream`, returns cudaGetLastError() after each
-// (0 on success).
+// words (16-byte aligned); rank_blocks: the rank kernel's grid; by_coords:
+// 0 for K2's contract, 1 for K4's. Launches five kernels on `stream`,
+// returns cudaGetLastError() after each (0 on success). Rows whose staging
+// does not fit in a block's shared memory (cap above 605 on an H100) are
+// refused with cudaErrorInvalidValue before any kernel runs.
 extern "C" int gather_select_launch(const void* table, const int32_t* h, const float* query,
                                     const uint8_t* mask, int N, int T, int cap, int* count,
-                                    int* scratch, int rank_blocks, void* out, void* stream) {
+                                    int* scratch, int rank_blocks, int by_coords, void* out,
+                                    void* stream) {
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rank_smem(cap) > static_cast<size_t>(smem_max)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int row_blocks = (T + kScanThreads - 1) / kScanThreads;
@@ -295,7 +340,7 @@ extern "C" int gather_select_launch(const void* table, const int32_t* h, const f
   uint32_t* o = static_cast<uint32_t*>(out);
   const int blocks = (N + kThreads - 1) / kThreads;
   gather_select_count<<<blocks, kThreads, 0, s>>>(h, N, T, w, o);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gather_select_rowsum<<<row_blocks, kScanThreads, 0, s>>>(T, w);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -303,15 +348,10 @@ extern "C" int gather_select_launch(const void* table, const int32_t* h, const f
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   gather_select_scatter<<<blocks, kThreads, 0, s>>>(h, N, T, w);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(cap) * 48 * kWarpsPerBlock;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(gather_select_rank, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  gather_select_rank<<<rank_blocks, kThreads, smem, s>>>(static_cast<const uint4*>(table), query,
-                                                         mask, cap, w, o);
-  return static_cast<int>(cudaGetLastError());
+  const uint4* t = static_cast<const uint4*>(table);
+  err = by_coords ? launch_rank<true>(rank_blocks, s, t, query, mask, cap, w, o)
+                  : launch_rank<false>(rank_blocks, s, t, query, mask, cap, w, o);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* gather_select_error_string(int code) {

@@ -23,9 +23,12 @@
 // 805 MB for the 524,288 queries of a B = 8 x 65,536 round, ~0.25 ms at full
 // bandwidth.
 // Design: one warp per query over its contiguous row, through the rank
-// routine K2 uses (rank_select.cuh): coalesced 32-byte candidates, a shuffle
+// routine of rank_select.cuh: coalesced 32-byte candidates, a shuffle
 // argmin over (d2, slot) that keeps the lowest slot, ids read as integer
-// bits and the winner's payload copied as raw words.
+// bits and the winner's payload copied as raw words. The chain's select leg
+// reads its rows in place instead (the table entry, gather_select.cu with
+// K4's contract); this kernel serves rows wider than that entry takes and
+// the Pallas kernel's own [N, cap * 8] contract.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +49,7 @@ rank_select_kernel(const uint32_t* __restrict__ rows, const float* __restrict__ 
   const uint32_t* r = rows + static_cast<size_t>(i) * cap * 8;
   float best;
   int best_c, occ;
-  rank_select::rank_row<false>(r, cap, lane, query[3 * i], query[3 * i + 1], query[3 * i + 2],
+  rank_select::rank_row(r, cap, lane, query[3 * i], query[3 * i + 1], query[3 * i + 2],
                                mask[i] != 0, best, best_c, occ);
   rank_select::write_selected(out + static_cast<size_t>(i) * rank_select::kOut, r, lane, best,
                               best_c, occ);

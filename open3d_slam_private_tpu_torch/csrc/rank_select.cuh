@@ -1,6 +1,6 @@
-// The per-row rank + first-minimum select of K4 (rank_select.cu). Its
-// kById contract is K2's; K2 (gather_select.cu) now ranks a row's grouped
-// queries from shared memory instead and no longer includes this header.
+// The per-row rank + first-minimum select of K4's rows entry
+// (rank_select.cu). K4's table entry and K2 rank from shared memory instead
+// (gather_select.cu) and do not include this header.
 //
 // A row is cap candidates of 8 32-bit words: x, y, z, id bits, nx, ny, nz, 0.
 // One warp ranks one row: lane l takes slots l, l+32, ..., reading each
@@ -22,13 +22,11 @@ namespace rank_select {
 
 constexpr int kOut = 16;  // x, y, z, id bits, nx, ny, nz, d2, occupancy, 7 zeros
 
-// Rank the row r against query (qx, qy, qz) with validity qm. kById (K2's
-// contract): a slot competes iff its id >= 0, and occupancy counts those
-// slots. !kById (K4's contract): every slot competes, padded ones through
-// their 1e9 coordinates (d2 ~3e18), and occupancy counts slots whose
-// x < 1e8. Masked queries see d2 = inf everywhere. The result is the same in
-// every lane: best d2, its lowest slot, the occupancy.
-template <bool kById>
+// Rank the row r against query (qx, qy, qz) with validity qm, K4's contract:
+// every slot competes, padded ones through their 1e9 coordinates (d2
+// ~3e18), and occupancy counts slots whose x < 1e8. A masked query sees
+// d2 = inf everywhere. The result is the same in every lane: best d2, its
+// lowest slot, the occupancy.
 __device__ __forceinline__ void rank_row(const uint32_t* __restrict__ r, int cap, int lane,
                                          float qx, float qy, float qz, bool qm, float& best,
                                          int& best_c, int& occ) {
@@ -37,13 +35,12 @@ __device__ __forceinline__ void rank_row(const uint32_t* __restrict__ r, int cap
   occ = 0;
   for (int c = lane; c < cap; c += 32) {
     const uint4 a = *reinterpret_cast<const uint4*>(r + 8 * c);  // x, y, z, id
-    const bool valid = kById ? static_cast<int32_t>(a.w) >= 0 : true;
-    occ += (kById ? valid : __uint_as_float(a.x) < 1e8f) ? 1 : 0;
+    occ += __uint_as_float(a.x) < 1e8f ? 1 : 0;
     const float dx = __fsub_rn(__uint_as_float(a.x), qx);
     const float dy = __fsub_rn(__uint_as_float(a.y), qy);
     const float dz = __fsub_rn(__uint_as_float(a.z), qz);
     float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-    if (!(valid && qm)) d2 = CUDART_INF_F;
+    if (!qm) d2 = CUDART_INF_F;
     if (best_c == 0x7fffffff || d2 < best) {  // a lane's first slot always counts
       best = d2;
       best_c = c;

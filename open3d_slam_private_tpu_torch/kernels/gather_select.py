@@ -31,8 +31,9 @@ N_OUT = 16
 # measured slower on the headline's queries.
 _RANK_BLOCKS = 132 * 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# gather_select_launch(table, h, query, mask, N, T, cap, count, scratch, rank_blocks, out, stream)
-_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P]
+# gather_select_launch(table, h, query, mask, N, T, cap, count, scratch, rank_blocks, by_coords,
+#                      out, stream)
+_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P]
 _COUNT: dict = {}  # device -> int32 row counts, zero between calls
 _SCRATCH: dict = {}  # device -> int32 scratch
 
@@ -89,8 +90,23 @@ def gather_select(table, h, query_xyz, query_mask):
     dev = table.device
     if dev.type == "cpu":
         return gather_select_plain(table, h, query_xyz, query_mask)
+    out = launch_grouped("gather_select", table, h, query_xyz, query_mask, by_coords=False)
+    gather_select.launches += 1
+    return out
+
+
+gather_select.launches = 0
+
+
+def launch_grouped(name, table, h, query_xyz, query_mask, by_coords: bool):
+    """Check the inputs and launch ``csrc/gather_select.cu`` on CUDA tensors
+    -> ``[N, 16]``: K2's contract, or K4's with ``by_coords`` (the table
+    entry of ``kernels/select.py``). ``name`` names the caller in errors."""
+    dev = table.device
     if dev.type != "cuda":
-        raise ValueError(f"gather_select: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if table.dim() != 3:
+        raise ValueError(f"table: shape {tuple(table.shape)}, expected [T, cap, 8]")
     T, cap = table.shape[0], table.shape[1]
     N = h.shape[0]
     _build.check_tensor("table", table, (T, cap, 8), (torch.float32,), dev)
@@ -106,14 +122,11 @@ def gather_select(table, h, query_xyz, query_mask):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_select_launch(
             table.data_ptr(), h.data_ptr(), query_xyz.data_ptr(), query_mask.data_ptr(), N, T,
-            cap, count.data_ptr(), scratch.data_ptr(), _RANK_BLOCKS, out.data_ptr(), stream,
+            cap, count.data_ptr(), scratch.data_ptr(), _RANK_BLOCKS, int(by_coords),
+            out.data_ptr(), stream,
         )
     _build.check_launch(lib, "gather_select", rc)
-    gather_select.launches += 1
     return out
-
-
-gather_select.launches = 0
 
 
 def match_result_from_selected(sel, query_mask, max_d2) -> MatchResult:

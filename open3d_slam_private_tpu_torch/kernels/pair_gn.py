@@ -29,7 +29,8 @@ N_OUT = 31  # the plain version's and K3's sums: 21 upper-triangle A, b, sum w, 
 K1_OUT = 45  # K1's output row: the full 6 x 6 A, b, sum w, sum w r^2, n ok
 _THREADS = 256
 _K1_TILE = 512  # points a K1 tile (csrc/pair_gn.cu kTile)
-_K1_BLOCKS = 264  # K1's grid target: 2 blocks on each of the H100's 132 SMs
+_K1_BLOCKS = 32  # K1's blocks per problem, at most
+_K3_BLOCKS = 128  # K3's blocks per problem, at most
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pair_gn_launch(reading, pair_xyz, pair_nrm, valid, T, tau, max_d2, B, N,
 #                nblocks, tiles_per_block, partial, counter, out, stream)
@@ -101,19 +102,21 @@ def pair_gn_plain(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float)
     return unpack(out.double().sum(1).float())
 
 
-def num_blocks(B: int, N: int) -> int:
-    """K3's blocks per problem: one point per thread for small batches,
-    about a thousand blocks in all for large ones (a function of the shape
-    only, so the summation order is fixed for a given shape)."""
-    return max(1, min(math.ceil(N / _THREADS), math.ceil(1024 / B)))
+def num_blocks(N: int) -> int:
+    """K3's blocks per problem: one point a thread up to 128 blocks. A
+    function of the problem's size N alone, so a problem sums in the same
+    order in any batch (at 8 x 65,536: 1,024 blocks in all)."""
+    return max(1, min(math.ceil(N / _THREADS), _K3_BLOCKS))
 
 
-def k1_grid(B: int, N: int):
+def k1_grid(N: int):
     """K1's (blocks per problem, tiles per block): as many 512-point tiles
-    a block as keep the grid near 2 blocks an SM, at least one. A function
-    of the shape only, so the summation order is fixed for a given shape."""
+    a block as keep a problem at 32 blocks or fewer, at least one. A
+    function of the problem's size N alone, so a problem sums in the same
+    order in any batch (1 x 16,384: 32 blocks of one tile; 8 x 65,536: 256
+    blocks of four)."""
     tiles = -(-N // _K1_TILE)
-    per_block = max(1, -(-tiles * B // _K1_BLOCKS))
+    per_block = max(1, -(-tiles // _K1_BLOCKS))
     return max(1, -(-tiles // per_block)), per_block
 
 
@@ -187,7 +190,7 @@ def pair_gn(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
         _build.check_tensor("valid", valid, (B, N), (torch.bool, torch.uint8), dev)
         _build.check_tensor("T", T, (B, 4, 4), f32, dev)
         _build.check_tensor("tau", tau, (B,), f32, dev)
-    nblocks, per_block = k1_grid(B, N)
+    nblocks, per_block = k1_grid(N)
     counter, partial = _k1_buffers(dev, B, B * nblocks * 32)
     out = torch.empty((B, K1_OUT), dtype=_F32, device=dev)
     lib = _build.load("pair_gn", _LAUNCH_ARGTYPES)
@@ -236,7 +239,7 @@ def pair_gn_k(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
     _build.check_tensor("valid", valid, (B, N, K), (torch.bool, torch.uint8), dev)
     _build.check_tensor("T", T, (B, 4, 4), f32, dev)
     _build.check_tensor("tau", tau, (B,), f32, dev)
-    nblocks = num_blocks(B, N)
+    nblocks = num_blocks(N)
     partial = torch.empty((B, nblocks, N_OUT), dtype=torch.float32, device=dev)
     out = torch.empty((B, N_OUT), dtype=torch.float32, device=dev)
     lib = _build.load("pair_gn_k", _LAUNCH_K_ARGTYPES)

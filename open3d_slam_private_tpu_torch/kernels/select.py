@@ -1,22 +1,33 @@
-"""K4: rank + select the knn = 1 winner of rows gathered beforehand.
+"""K4: rank + select the knn = 1 winner of a query's cell-list row.
 
 Replaces ``rank_select_rows``
 (``open3d_slam_private_tpu/kernels/select_pallas.py:117``), the per-round
-selection of ``ICPConfig(select_kernel=True)``. The CUDA kernel is
-``csrc/rank_select.cu`` (its rank loop is K2's, ``csrc/rank_select.cuh``);
-:func:`rank_select_rows_plain` is the same function in plain PyTorch.
-:func:`rank_select_rows` runs the plain version for CPU tensors and the
-kernel for CUDA tensors, with no fallback between them.
+selection of ``ICPConfig(select_kernel=True)``, with two entries of one
+function:
 
-For query i and its gathered cell-list row ``rows[i] = [cap * 8]`` (cap
-candidates of x, y, z, id bits, nx, ny, nz, 0) the output row ``[16]`` holds
-the winner's x, y, z, id bits, nx, ny, nz, the winner's squared distance,
-the row occupancy and 7 zeros. Every slot competes: padded slots carry
-``xyz = 1e9``, so they lose to any real candidate and an empty row's
-distance is finite (~3e18); a masked query sees inf everywhere. The winner
-is the first slot at the minimum; occupancy counts the slots whose
-``x < 1e8``. :func:`match_result_from_selected` turns the rows into a knn=1
-``MatchResult``.
+- :func:`rank_select_rows` on rows gathered beforehand (``[N, cap * 8]``),
+  the Pallas kernel's own contract; its CUDA kernel is
+  ``csrc/rank_select.cu`` (rank routine ``csrc/rank_select.cuh``), its plain
+  version :func:`rank_select_rows_plain`;
+- :func:`rank_select_table` on the cell-list ``table [T, cap, 8]`` and the
+  row index ``h [N]``: the same function on ``table.reshape(T, -1)[h]``
+  without gathering the rows, through K2's grouped machinery
+  (``csrc/gather_select.cu`` with K4's contract); its plain version is
+  :func:`rank_select_table_plain`. The select leg of ``models/icp.py``
+  calls this entry, at any row width whose staging fits in a block's
+  shared memory (the kernel refuses wider rows).
+
+Each runs its plain version for CPU tensors and its kernel for CUDA tensors,
+with no fallback between them.
+
+For query i and its cell-list row (cap candidates of x, y, z, id bits, nx,
+ny, nz, 0) the output row ``[16]`` holds the winner's x, y, z, id bits, nx,
+ny, nz, the winner's squared distance, the row occupancy and 7 zeros. Every
+slot competes: padded slots carry ``xyz = 1e9``, so they lose to any real
+candidate and an empty row's distance is finite (~3e18); a masked query sees
+inf everywhere. The winner is the first slot at the minimum; occupancy
+counts the slots whose ``x < 1e8``. :func:`match_result_from_selected`
+turns the rows into a knn=1 ``MatchResult``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 from open3d_slam_private_tpu_torch.kernels import _build
 from open3d_slam_private_tpu_torch.kernels.gather_select import (  # noqa: F401  (re-export)
     N_OUT,
+    launch_grouped,
     match_result_from_selected,
 )
 from open3d_slam_private_tpu_torch.ops.grid_hash import _sq3
@@ -86,3 +98,27 @@ def rank_select_rows(rows, query_xyz, query_mask):
 
 
 rank_select_rows.launches = 0
+
+
+def rank_select_table_plain(table, h, query_xyz, query_mask):
+    """Plain PyTorch K4 on the rows ``table.reshape(T, -1)[h]``."""
+    return rank_select_rows_plain(table.reshape(table.shape[0], -1)[h.long()], query_xyz, query_mask)
+
+
+def rank_select_table(table, h, query_xyz, query_mask):
+    """K4 on ``table [T, cap, 8]`` float32 and ``h [N]`` int32 row indices
+    in ``[0, T)``, ``query_xyz [N, 3]`` float32 and ``query_mask [N]`` bool
+    or uint8 -> ``[N, 16]``, the rows read in place. CPU tensors take
+    :func:`rank_select_table_plain`; CUDA tensors launch the kernel (counted
+    in ``rank_select_table.launches``; five ``__global__`` functions: K2's
+    count, rowsum, scan, scatter and its rank kernel with K4's contract) or
+    raise. A row index outside ``[0, T)`` is outside the contract (the plain
+    version indexes as PyTorch does; the kernel writes K2's INVALID row)."""
+    if table.device.type == "cpu":
+        return rank_select_table_plain(table, h, query_xyz, query_mask)
+    out = launch_grouped("rank_select_table", table, h, query_xyz, query_mask, by_coords=True)
+    rank_select_table.launches += 1
+    return out
+
+
+rank_select_table.launches = 0

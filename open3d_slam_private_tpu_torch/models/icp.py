@@ -12,8 +12,8 @@ forms, picked by the config as the JAX package picks them:
   (knn 2..8), with the trim threshold frozen per round (histogram). The
   round's selection is a row gather + k-pass re-rank, the gather-select
   kernel K2 (``gather_kernel=True``, knn = 1), or the rank-select kernel K4
-  over rows gathered beforehand (``select_kernel=True``, knn = 1; K2 wins
-  when both are set);
+  (``select_kernel=True``, knn = 1; K2 wins when both are set) on the rows
+  read in place, where the JAX package gathers them first;
 - the **per-iteration chain** (libpointmatcher's reference-exact loop:
   ``candidate_refresh_every = 0``, or a brute matcher): every iteration
   re-matches (cell list, hash grid, brute KNN, or the brute 1-NN kernel K5 for
@@ -26,7 +26,10 @@ against one shared reference, written out with a leading batch axis (the
 JAX package vmaps ``icp_single``): every problem carries its own ``done``
 flag and the loops run while any problem is active, updating only the active
 ones. The path is chosen by the config alone, never by the device: on CPU
-tensors the kernels' plain versions run.
+tensors the kernels' plain versions run. Both chains form their normal
+equations through ``normal_eq``, which on the card sums each problem in an
+order fixed by its own size, so a problem's result does not depend on the
+batch it runs in.
 
 User entry points, as in the JAX package: :func:`register_pair`,
 :func:`register_batch`, :func:`register_hypotheses` and
@@ -47,8 +50,9 @@ from open3d_slam_private_tpu_torch.kernels.gather_select import (
     match_result_from_selected,
 )
 from open3d_slam_private_tpu_torch.kernels.knn_brute import knn_brute
+from open3d_slam_private_tpu_torch.kernels.normal_eq import normal_eq
 from open3d_slam_private_tpu_torch.kernels.pair_gn import pair_gn, pair_gn_k
-from open3d_slam_private_tpu_torch.kernels.select import rank_select_rows
+from open3d_slam_private_tpu_torch.kernels.select import rank_select_table
 from open3d_slam_private_tpu_torch.models import localizability as xicp
 from open3d_slam_private_tpu_torch.models import minimizers
 from open3d_slam_private_tpu_torch.ops import cell_list as cell_mod
@@ -349,9 +353,8 @@ def _match_round(reading: PointBatch, ref: ICPReference, src0, cfg: ICPConfig, n
         m = reading.mask.reshape(-1).contiguous()
         if cfg.gather_kernel:
             sel = gather_select(grid.table, h, q, m)
-        else:
-            rows = grid.table.reshape(grid.table_size, -1)[h.long()]
-            sel = rank_select_rows(rows, q, m)
+        else:  # K4 on the rows read in place
+            sel = rank_select_table(grid.table, h, q, m)
         sel = sel.reshape(B, N, -1)
         res = match_result_from_selected(sel, reading.mask, cfg.max_match_dist**2)
         full_rows = sel[..., 8] >= grid.list_cap
@@ -400,8 +403,7 @@ def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, c
         fresh = round_active & (s["it"] == 0)
         if optimized and bool(fresh.any()):
             w0 = _weights(res0, cfg, trim_limit=tau)
-            A0, b0 = minimizers.point_to_plane_normal_equations_bc(
-                src0, res0.xyz, res0.normals, w0)
+            A0, b0 = normal_eq(src0, res0.xyz.contiguous(), res0.normals.contiguous(), w0)
             loc = _detect(A0, b0, src0, res0, w0, cfg, fresh, loc)
 
         if cfg.knn == 1:
@@ -452,7 +454,7 @@ def _run_iter_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, cfg
         src = se3.apply_transform(s["T"], reading.xyz)
         res = _match(src, reading.mask, ref, cfg, ref_padded)
         w = _weights(res, cfg)
-        A, b = minimizers.point_to_plane_normal_equations_bc(src, res.xyz, res.normals, w)
+        A, b = normal_eq(src, res.xyz.contiguous(), res.normals.contiguous(), w)
         if optimized:
             fresh = active & (s["it"] == 0)
             if bool(fresh.any()):

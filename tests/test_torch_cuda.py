@@ -177,10 +177,12 @@ def test_icp_batch_on_card_matches_cpu(rng, cuda_device, gather_kernel):
         assert (angle < 1e-4).all()
 
 
-def _adversarial_rows(rng, device, case):
+def _adversarial_rows(rng, device, case, padded=False):
     """K2 inputs that stress the grouping: every query in one row (four
     blocks of queries), every query in a distinct row, out-of-range and
-    negative row indices, all queries masked, a row without a valid slot."""
+    negative row indices, all queries masked, a row without a valid slot
+    (its ids -1, or with ``padded`` every slot the padding payload, xyz
+    1e9, as K4's contract knows an empty slot)."""
     cl, h, q, qm = _cell_rows(rng, device)
     n = h.shape[0]
     if case == "one-row":
@@ -196,7 +198,10 @@ def _adversarial_rows(rng, device, case):
         qm = torch.zeros_like(qm)
     elif case == "empty-row":
         table = cl.table.clone()
-        table.view(torch.int32)[int(h[0]), :, 3] = -1
+        if padded:
+            table[int(h[0])] = tgh.empty_payload(table.shape[1], device)
+        else:
+            table.view(torch.int32)[int(h[0]), :, 3] = -1
         cl = dataclasses.replace(cl, table=table)
         h = h.clone()
         h[: n // 2] = h[0]
@@ -526,3 +531,146 @@ def test_slam_pipeline_on_card_matches_cpu(rng, cuda_device):
         d = torch.tensor(np.linalg.inv(a) @ b)
         assert float(torch.linalg.vector_norm(d[:3, 3])) < 1e-4
         assert float(se3.rotation_angular_distance(d[:3, :3], torch.eye(3, dtype=torch.float64))) < 1e-4
+
+
+def _normal_eq_inputs(rng, B, n, K, device):
+    src = rng.uniform(-5, 5, size=(B, n, 3)).astype(np.float32)
+    q = src[:, :, None, :] + rng.normal(scale=0.05, size=(B, n, K, 3)).astype(np.float32)
+    nrm = rng.normal(size=(B, n, K, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = (rng.uniform(size=(B, n, K)) > 0.3).astype(np.float32)
+    return [torch.tensor(x, device=device) for x in (src, q, nrm, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,K", [(3, 5003, 1), (2, 20000, 8), (5, 7, 3), (1, 0, 1)])
+def test_normal_eq_kernel_matches_plain(rng, cuda_device, B, n, K):
+    """normal_eq against the float64 sums of the plain version's function,
+    within 1e-5 of each entry's magnitude; a rerun and each problem run
+    alone give the same bits; off the 1,024-pair chunk and with no pair."""
+    from chip_smoke import _normal_eq_fp64
+    from open3d_slam_private_tpu_torch.kernels import normal_eq as tne
+
+    args = _normal_eq_inputs(rng, B, n, K, cuda_device)
+    before = tne.normal_eq.launches
+    A, b = tne.normal_eq(*args)
+    assert tne.normal_eq.launches == before + 1
+    A64, b64, sA, sb = _normal_eq_fp64(*args)
+    assert ((A.double() - A64).abs() <= 1e-5 * (sA + 1.0)).all()
+    assert ((b.double() - b64).abs() <= 1e-5 * (sb + 1.0)).all()
+    pA, pb = tne.normal_eq_plain(*args)  # the float32 einsum: also within 1e-5 of the magnitude
+    assert ((A.double() - pA.double()).abs() <= 2e-5 * (sA + 1.0)).all()
+    assert ((b.double() - pb.double()).abs() <= 2e-5 * (sb + 1.0)).all()
+    A2, b2 = tne.normal_eq(*args)
+    assert torch.equal(A.view(torch.int32), A2.view(torch.int32))
+    assert torch.equal(b.contiguous().view(torch.int32), b2.contiguous().view(torch.int32))
+    for i in range(B):
+        Ai, bi = tne.normal_eq(*(x[i:i + 1].contiguous() for x in args))
+        assert torch.equal(Ai.view(torch.int32), A[i:i + 1].view(torch.int32))
+        assert torch.equal(bi.contiguous().view(torch.int32), b[i:i + 1].contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_normal_eq_kernel_refuses_bad_inputs(rng, cuda_device):
+    from open3d_slam_private_tpu_torch.kernels import normal_eq as tne
+
+    args = _normal_eq_inputs(rng, 2, 100, 2, cuda_device)
+    bad = list(args)
+    bad[3] = bad[3].double()
+    with pytest.raises(ValueError, match="dtype"):
+        tne.normal_eq(*bad)
+    bad = list(args)
+    bad[1] = bad[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tne.normal_eq(*bad)
+    bad = list(args)
+    bad[2] = bad[2][:, :, :1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        tne.normal_eq(*bad)
+    with pytest.raises(ValueError, match="on cpu"):
+        tne.normal_eq(args[0], args[1].cpu(), args[2], args[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows", "one-row", "distinct-rows", "all-masked", "empty-row"])
+def test_rank_select_table_kernel_matches_plain(rng, cuda_device, case):
+    """K4's table entry equals its plain version (the rows gathered, then
+    K4's plain rank) bit for bit, on the cell rows of a scene and on K2's
+    stress cases in K4's contract: every query in one row, every query in a
+    distinct row, all masked, half the queries in a row of padding only
+    (finite distances, occupancy 0)."""
+    from open3d_slam_private_tpu_torch.kernels import select as tsel
+
+    if case == "rows":
+        cl, h, q, qm = _cell_rows(rng, cuda_device)
+    else:
+        cl, h, q, qm = _adversarial_rows(rng, cuda_device, case, padded=True)
+    table, n = cl.table, h.shape[0]
+    before = tsel.rank_select_table.launches
+    got = tsel.rank_select_table(table, h, q, qm)
+    assert tsel.rank_select_table.launches == before + 1
+    assert torch.equal(got.view(torch.int32), tsel.rank_select_table_plain(table, h, q, qm).view(torch.int32))
+    if case == "empty-row":
+        assert bool(torch.isfinite(got[: n // 2][qm[: n // 2], 7]).all())
+        assert bool((got[: n // 2, 8] == 0).all())
+    assert torch.equal(tsel.rank_select_table(table, h, q, qm).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rank_select_table_kernel_refuses_bad_inputs(rng, cuda_device):
+    from open3d_slam_private_tpu_torch.kernels import select as tsel
+
+    cl, h, q, qm = _cell_rows(rng, cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        tsel.rank_select_table(cl.table, h.long(), q, qm)
+    with pytest.raises(ValueError, match="shape"):
+        tsel.rank_select_table(cl.table[:, :, :4].contiguous(), h, q, qm)
+    # Rows as wide as a block's shared memory stages (605 slots on an H100)
+    # are taken; wider ones are refused before any pass runs.
+    wide = torch.rand((16, 605, 8), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    hw = (h % 16).contiguous()
+    assert torch.equal(tsel.rank_select_table(wide, hw, q, qm).view(torch.int32),
+                       tsel.rank_select_table_plain(wide, hw, q, qm).view(torch.int32))
+    before = tsel.rank_select_table.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tsel.rank_select_table(torch.zeros((16, 606, 8), device=cuda_device), hw, q, qm)
+    assert tsel.rank_select_table.launches == before
+    shifted = torch.empty(cl.table.numel() + 1, device=cuda_device)[1:].view(cl.table.shape)
+    shifted.copy_(cl.table)  # contiguous, 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        tsel.rank_select_table(shifted, h, q, qm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["iter-grid", "iter-brute", "iter-brute_pallas", "cached-knn1",
+                                   "cached-knn1-optimized", "cached-knn4"])
+def test_batch_independence_on_card(rng, cuda_device, chain):
+    """Problems 0-3 of a batch of 64 (``register_hypotheses``) give the same
+    transforms, bit for bit, as the same problems run as a batch of 4: the
+    per-iteration chain with the grid, brute and brute_pallas matchers, and
+    the cached rounds at knn 1 (with and without the X-ICP Optimized
+    method) and knn 4."""
+    from open3d_slam_private_tpu_torch.models.localizability import DegeneracyConfig
+
+    scene = _scene(rng)
+    kind, *rest = chain.split("-")
+    base = dict(knn=1, max_match_dist=0.5, grid_table_size=1 << 12, grid_bucket_cap=24,
+                trimmed_ratio=0.9, fast_trimming=True, max_iterations=12)
+    if kind == "iter":
+        cfg = ticp.ICPConfig(matcher=rest[0], **base)
+    else:
+        base.update(knn=int(rest[0][3:]), matcher="grid", candidate_refresh_every=4, fused_kernel=True)
+        if rest[1:] == ["optimized"]:
+            base["degeneracy"] = DegeneracyConfig(method="optimized")
+        cfg = ticp.ICPConfig(**base)
+    ref_b = tpc.from_points(scene, capacity=8192, device=cuda_device)
+    g = tgh.build_grid(ref_b.padded_xyz(), ref_b.mask, 2.0, 1 << 12, 32)
+    ref_b = tnm.estimate_normals_moments(ref_b, g, max_dist=1.0,
+                                         orient_towards=torch.zeros(3, device=cuda_device))
+    reading = tpc.from_points(torch.tensor(scene[1::5][:1024], device=cuda_device) + 0.003, device=cuda_device)
+    twists = np.c_[rng.uniform(-0.05, 0.05, (64, 3)), rng.uniform(-0.5, 0.5, (64, 3))]
+    seeds = se3.exp_se3(torch.tensor(twists, dtype=torch.float32)).to(cuda_device)
+    big = ticp.register_hypotheses(reading, ref_b, seeds, cfg).transform[:4]
+    small = ticp.register_hypotheses(reading, ref_b, seeds[:4].contiguous(), cfg).transform
+    assert bool(torch.isfinite(big).all())
+    assert torch.equal(big.contiguous().view(torch.int32), small.contiguous().view(torch.int32))

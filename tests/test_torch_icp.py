@@ -25,6 +25,7 @@ from open3d_slam_private_tpu_torch import interop
 from open3d_slam_private_tpu_torch.models import icp as ticp
 from open3d_slam_private_tpu_torch.models import localizability as tloc
 from open3d_slam_private_tpu_torch.models import minimizers as tmin
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 DEG = jloc.DegeneracyConfig(method="optimized", enough_information_threshold=250.0,
                             insufficient_information_threshold=180.0)
@@ -34,11 +35,6 @@ CFG = jicp.ICPConfig(
     min_diff_rot=1e-3, min_diff_trans=8e-3, coarse_iterations=20, coarse_stride=4,
     candidate_refresh_every=10, candidate_slack=0.25, fused_kernel=True, degeneracy=DEG,
 )
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 def _scene(rng, planar=False, n=6000):

@@ -7,7 +7,6 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from open3d_slam_private_tpu.geometry import se3 as jse3
@@ -17,6 +16,7 @@ from open3d_slam_private_tpu.slam import submap as jsubmap
 from open3d_slam_private_tpu_torch import interop
 from open3d_slam_private_tpu_torch.slam import mapper as tmapper
 from open3d_slam_private_tpu_torch.slam import submap as tsubmap
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 # A configuration no other test traces: the JAX mapper's jitted steps are
 # cached per static config, and this one must be traced with the fused path.
@@ -25,11 +25,6 @@ JCFG = dataclasses.replace(
     reference_reinit_every=2,
 )
 JCFG = dataclasses.replace(JCFG, icp=dataclasses.replace(JCFG.icp, grid_table_size=1 << 12))
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 def _scene(rng, n=40000):

@@ -29,16 +29,12 @@ from open3d_slam_private_tpu_torch.ops import filters as tfl
 from open3d_slam_private_tpu_torch.ops import grid_hash as tgh
 from open3d_slam_private_tpu_torch.ops import normals as tnm
 from open3d_slam_private_tpu_torch.slam import odometry as todo
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 # A table size no other test file uses: the JAX jitted steps are cached per
 # static config, and these must be traced with the fused path on.
 JODO = jodo.OdometryConfig(max_points=2048)
 JODO = dataclasses.replace(JODO, icp=dataclasses.replace(JODO.icp, grid_table_size=1 << 11))
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 def scene(rng, n=40000):

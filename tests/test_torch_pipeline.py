@@ -34,6 +34,7 @@ from open3d_slam_private_tpu_torch import interop
 from open3d_slam_private_tpu_torch.kernels import pair_gn as tpg
 from open3d_slam_private_tpu_torch.slam import pipeline as tpipe
 from tests.test_torch_odometry import pose, scene
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 SWEEP = 0.1  # s, one sweep; the scans are 0.1 s apart
 
@@ -82,11 +83,6 @@ def distorted_scan(S, k, seed, n=4000):
 def _rot_angle(R):
     skew = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
     return float(np.arctan2(np.linalg.norm(skew) / 2, (np.trace(R) - 1) / 2))
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 3, 4])

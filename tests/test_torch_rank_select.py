@@ -61,3 +61,23 @@ def test_rank_select_selection_equals_gather_select(rng):
     for f in ("ids", "dists", "xyz", "normals"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(k4[:, 8], k2[:, 8])
+
+
+def test_rank_select_table_plain_matches_pallas(rng):
+    """K4's table entry, the rows read in place on the card: its plain
+    version against the Pallas kernel on the rows ``table_flat[h]`` that
+    JAX's select leg gathers (``open3d_slam_private_tpu/models/icp.py``),
+    in interpret mode. The whole output row bit for bit, including the
+    queries whose row holds only padding (finite distance, occupancy 0) and
+    the masked queries (inf)."""
+    cl, rows, q, mask, h = _rows(rng)
+    want = np.asarray(jsel.rank_select_rows(jnp.asarray(np.asarray(cl.table).reshape(cl.table.shape[0], -1)[h]),
+                                            jnp.asarray(q), jnp.asarray(mask), interpret=True))
+    table = interop.tensor(cl.table)
+    got = tsel.rank_select_table(table, torch.tensor(h), torch.tensor(q), torch.tensor(mask)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    empty = got[:, 8] == 0
+    assert (empty & mask).any() and np.isfinite(got[empty & mask, 7]).all()
+    assert (~mask).any() and np.isinf(got[~mask, 7]).all()
+    assert np.array_equal(got.view(np.int32), tsel.rank_select_rows(
+        torch.tensor(rows), torch.tensor(q), torch.tensor(mask)).numpy().view(np.int32))

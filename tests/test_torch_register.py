@@ -22,6 +22,7 @@ from open3d_slam_private_tpu.ops import normals as jnm
 from open3d_slam_private_tpu.ops import pointcloud as jpc
 from open3d_slam_private_tpu_torch import interop
 from open3d_slam_private_tpu_torch.models import icp as ticp
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 DEG = jloc.DegeneracyConfig(method="optimized", enough_information_threshold=250.0,
                             insufficient_information_threshold=180.0)
@@ -30,11 +31,6 @@ BASE = dict(max_match_dist=0.5, matcher="grid", grid_table_size=1 << 12, grid_bu
 
 
 PERTURB = np.asarray(jse3.exp_se3(jnp.asarray([0.01, -0.01, 0.015, 0.05, 0.04, -0.05])), np.float64)
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 def scene(rng, n=6000, planar=False):

@@ -22,6 +22,7 @@ from open3d_slam_private_tpu_torch.geometry import se3 as tse3
 from open3d_slam_private_tpu_torch.kernels import pair_gn as tpg
 from open3d_slam_private_tpu_torch.models import icp as ticp
 from test_torch_register import assert_same_result, reading, reference, scene
+from tests.torch_jax_paths import jax_fused_path  # noqa: F401  (JAX on its fused path)
 
 DEG = jloc.DegeneracyConfig(method="optimized", enough_information_threshold=250.0,
                             insufficient_information_threshold=180.0)
@@ -34,11 +35,6 @@ CACHED = jicp.ICPConfig(
 HYP = dataclasses.replace(CACHED, coarse_iterations=0, candidate_refresh_every=0, max_iterations=12,
                           degeneracy=jloc.DegeneracyConfig())
 TWISTS = [[0.01, -0.008, 0.012, 0.08, -0.05, 0.03], [0.012, -0.01, 0.02, 0.1, -0.06, 0.035]]
-
-
-@pytest.fixture(autouse=True)
-def fused_interpret(monkeypatch):
-    monkeypatch.setenv("O3S_FUSED_INTERPRET", "1")
 
 
 def _batch(rng, pts, n=1024):

@@ -35,7 +35,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-os.environ.setdefault("O3S_FUSED_INTERPRET", "1")
+from tests.torch_jax_paths import use_jax_fused_path  # noqa: E402
+
+use_jax_fused_path()
 
 import tests.conftest  # noqa: E402,F401  (JAX on the CPU)
 import jax  # noqa: E402

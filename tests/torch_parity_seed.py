@@ -16,8 +16,10 @@ import sys
 
 import numpy as np
 
-os.environ.setdefault("O3S_FUSED_INTERPRET", "1")  # JAX's Pallas pair-GN in interpret mode
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from tests.torch_jax_paths import use_jax_fused_path  # noqa: E402
+
+use_jax_fused_path()  # JAX's Pallas pair-GN in interpret mode, the port's K1 twin
 
 import tests.conftest  # noqa: E402,F401  (JAX on the CPU)
 import jax.numpy as jnp  # noqa: E402
