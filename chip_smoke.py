@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA libraries from ``open3d_slam_private_tpu_torch/csrc``
+Builds the eight CUDA libraries from ``open3d_slam_private_tpu_torch/csrc``
 (one nvcc per source, all started together; sm_90a, into
 ``build/torch_kernels/``) and holds each kernel against its plain PyTorch
 version at its main path's shapes, with its wrapper time (CUDA events), its
@@ -20,11 +20,17 @@ normal equations in an order fixed by a problem's size) is held against the
 float64 einsum and to giving a problem the same bits alone as in its batch;
 moments (the cached rounds' moment sums, point-to-plane and GICP, and the
 raw pair sums of the X-ICP analysis) likewise, a problem alone against the
-same problem in a batch of 64.
+same problem in a batch of 64; sym_eig (the Jacobi eigensolver of the X-ICP
+solves, which a CUDA graph can hold) on the headline's KKT matrices against
+``torch.linalg.eigh``, a matrix alone against inside a batch of 64.
 Then it drives the port's
 paths through their user entry points: the ``SlamPipeline`` (LiDAR odometry
 -> mapper -> submap collection, loop closure off) over a 96-scan synthetic
-drive of 28.5 m that crosses the 20 m submap creation radius, and again in
+drive of 28.5 m that crosses the 20 m submap creation radius; the
+``RealtimePipeline`` on the same drive and configs (realtime-64k: one
+captured CUDA graph a scan, paced and throughput, its first scans held bit
+for bit to the eager ``rt_step``, its kernels counted inside the graph from
+profiler device events), and the ``SlamPipeline`` again in
 the evaluation protocol's configuration (``tools/run_eval.py``: the
 mapper's direct in-round path, exact trimming, with X-ICP's ternary
 method); the ``Mapper``
@@ -81,7 +87,7 @@ SKELETON_POINTS = 512
 KERNEL_MODULES = {  # library name -> wrapper module
     "pair_gn": "pair_gn", "gather_select": "gather_select", "pair_gn_k": "pair_gn",
     "rank_select": "select", "knn_brute": "knn_brute", "normal_eq": "normal_eq",
-    "moments": "moments",
+    "moments": "moments", "sym_eig": "sym_eig",
 }
 _GROUPED = ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
             "gather_select_scatter", "gather_select_rank")
@@ -94,10 +100,14 @@ DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
     "knn_brute": ("knn_brute_pack", "knn_brute_kernel", "knn_brute_merge"),
     "normal_eq": ("normal_eq_partial", "normal_eq_final"),
     "moments": ("moments_partial", "moments_final"),
+    "sym_eig": ("sym_eig_kernel",),
 }
 # Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# FP64 outside the tensor cores (NVIDIA's H100 SXM data sheet): sym_eig's
+# float64 Jacobi.
+PEAK_FP64_FLOP_PER_S = 34e12
 # Operations counted per pair of K1/K3: the transform (18), difference and
 # squared distance (8), residual (5), cross product (9), the weighted
 # columns (6), the 21 + 6 products of A and b, w r^2 (2) and the 31 sums.
@@ -280,12 +290,12 @@ def headline_setup(dev):
                 readings=pc.stack(scans), init=init, T_trues=np.stack(T_trues))
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOP_PER_S):
     """The least time (ms) the card could take for a call: the bytes it must
-    move over the memory rate, or its operations over the FP32 rate,
-    whichever is larger."""
+    move over the memory rate, or its operations over the FP32 rate (or the
+    rate ``peak_flops`` of their type), whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=int(nbytes), flops=int(flops))
 
@@ -321,14 +331,15 @@ def device_us_per_call(fn, kernels, reps=10):
     return (total if total > 0 else None), per
 
 
-def timed(name, fn, plain_fn, nbytes, flops, library_fn=None, plain_reps=20):
+def timed(name, fn, plain_fn, nbytes, flops, library_fn=None, plain_reps=20,
+          peak_flops=PEAK_FP32_FLOP_PER_S):
     """Wrapper ms (CUDA events), plain ms, device us per launch (profiler),
     the bound and its share, and the library call's ms where there is one
     (one call after a warm-up: K5's takes seconds)."""
     device_us, per_kernel = device_us_per_call(fn, DEVICE_KERNELS[name])
     out = dict(ms=cuda_ms(fn),
                plain_ms=cuda_ms(plain_fn, reps=plain_reps, rounds=3 if plain_reps < 20 else 5),
-               device_us=device_us, **bound(nbytes, flops))
+               device_us=device_us, **bound(nbytes, flops, peak_flops))
     if len(per_kernel) > 1:
         out["device_us_by_kernel"] = per_kernel
     out["bound_share"] = (out["bound_ms"] * 1e3 / out["device_us"]) if out["device_us"] else None
@@ -567,6 +578,7 @@ def phase_kernels(hs):
     results.append(_check_knn_brute(ref, src0))
     results.append(_check_normal_eq(ref, readings, cfg, src0))
     results.append(_check_moments(hs, T, src0))
+    results.append(_check_sym_eig(hs))
     return results
 
 
@@ -899,6 +911,97 @@ def _check_moments(hs, T, src0):
                 replaces_note="XLA einsums of the JAX package (point_to_plane_moments; gicp_moments at "
                               "minimizers.py:255), not a Pallas kernel",
                 shape=f"{B}x{N}x1", **main, gicp=out["gicp"])
+
+
+def _kkt_matrices(hs):
+    """The 12 x 12 float64 KKT matrices and right-hand sides the headline's
+    X-ICP solves hand ``sym_eig`` (the first equality-constrained solve of
+    one ``icp_batch`` call, 8 problems), recorded from the chain."""
+    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+    from open3d_slam_private_tpu_torch.models import minimizers
+
+    seen = []
+    solve = minimizers.solve_normal_equations
+
+    def record(A, b, rcond=1e-7):
+        if A.shape[-1] == 12 and not seen:
+            seen.append((A.clone(), b.clone()))
+        return solve(A, b, rcond)
+
+    minimizers.solve_normal_equations = record
+    try:
+        icp_mod.icp_batch(hs["readings"], hs["ref"], hs["init"], hs["cfg"])
+    finally:
+        minimizers.solve_normal_equations = solve
+    return seen[0]
+
+
+def sym_eig_flops(sweeps: torch.Tensor, n: int) -> int:
+    """Operations of the Jacobi sweeps the matrices took: each sweep rotates
+    at most n (n - 1) / 2 pairs, each rotation ~15 operations for (c, s)
+    and 6 n for each of A's rows, A's columns and V's columns."""
+    return int(sweeps.sum()) * n * (n - 1) // 2 * (18 * n + 15)
+
+
+def _check_sym_eig(hs):
+    """sym_eig (the Jacobi eigensolver the realtime step's graph holds) on
+    the headline's real KKT matrices at 1 x 12 x 12 (the SLAM step's mapper,
+    one problem) and 8 x 12 x 12 float64, against ``torch.linalg.eigh``:
+    eigenvalues within 1e-12 of the matrix's scale, the matrix rebuilt, the
+    pseudo-solve the chain takes, a matrix alone against inside a batch of
+    64 (bit-equal); and the 6 x 6 float32 of the spectral diagnostics.
+    plain_ms: one batched ``torch.linalg.eigh``; library_ms: the
+    loop of one ``torch.linalg.eigh`` a matrix that it replaces (the
+    chain's former ``minimizers.eigh_each``: one cuSOLVER call a matrix)."""
+    from open3d_slam_private_tpu_torch.kernels import sym_eig as sek
+    from open3d_slam_private_tpu_torch.models import minimizers
+
+    M8, rhs8 = _kkt_matrices(hs)
+    out = {}
+    for shape, (M, rhs) in (("1x12x12", (M8[:1].contiguous(), rhs8[:1])), ("8x12x12", (M8, rhs8))):
+        B, n = M.shape[0], M.shape[-1]
+        w, V, sweeps = sek.sym_eig(M, sweeps=True)
+        wp, Vp = torch.linalg.eigh(M)
+        scale = M.abs().amax(dim=(-2, -1))
+        err = float((w - wp).abs().amax())
+        rel = float(((w - wp).abs().amax(-1) / scale).amax())
+        rebuilt = float(((V @ torch.diag_embed(w) @ V.mT - M).abs().amax(dim=(-2, -1)) / scale).amax())
+        x = minimizers.solve_normal_equations(M, rhs).cpu()
+        xp = minimizers.solve_normal_equations(M.cpu(), rhs.cpu())
+        solve_rel = float(((x - xp).abs() / (xp.abs().amax(-1, keepdim=True) + 1e-300)).amax())
+        # The pseudo-solves of two float64 eigensolvers part by about the KKT
+        # system's condition number times float64's epsilon.
+        if not (rel <= 1e-12 and rebuilt <= 1e-12 and solve_rel <= 1e-7 and int(sweeps.max()) < sek.MAX_SWEEPS):
+            raise RuntimeError(f"sym_eig {shape}: eigenvalues {rel}, rebuilt {rebuilt}, pseudo-solve "
+                               f"{solve_rel}, sweeps {sweeps.tolist()}")
+        big = M.repeat(-(-64 // B), 1, 1)[:64].contiguous()
+        wb, Vb = sek.sym_eig(big)
+        alone = all(torch.equal(wb[i], w[i]) and torch.equal(Vb[i], V[i]) for i in range(B))
+        if not alone:
+            raise RuntimeError(f"sym_eig {shape}: a matrix's bits depend on its batch")
+        nbytes = B * (2 * n * n + n) * 8 + B * 4
+        t = timed("sym_eig", lambda m=M: sek.sym_eig(m), lambda m=M: torch.linalg.eigh(m),
+                  nbytes, sym_eig_flops(sweeps, n),
+                  library_fn=lambda m=M: [torch.linalg.eigh(m[i:i + 1]) for i in range(m.shape[0])],
+                  peak_flops=PEAK_FP64_FLOP_PER_S)
+        out[shape] = dict(max_abs_err=err, eig_rel_err=rel, rebuilt_rel_err=rebuilt,
+                          pseudo_solve_rel_err=solve_rel, sweeps=sweeps.tolist(),
+                          batch_independent_in_64=alone, **t)
+        say("kernel", name="sym_eig", shape=shape, dtype="float64", **out[shape])
+    A6 = M8[:, :6, :6].float().contiguous()  # the normal equations' block, float32
+    w6, V6 = sek.sym_eig(A6)
+    wp6, _ = torch.linalg.eigh(A6)
+    scale6 = A6.abs().amax(dim=(-2, -1))
+    rel6 = float(((w6 - wp6).abs().amax(-1) / scale6).amax())
+    if rel6 > 1e-5:
+        raise RuntimeError(f"sym_eig 8x6x6 float32: eigenvalues {rel6} of the scale")
+    say("kernel_check", name="sym_eig", shape="8x6x6", dtype="float32", eig_rel_err=rel6)
+    return dict(name="sym_eig", route="cuda", source="open3d_slam_private_tpu_torch/csrc/sym_eig.cu",
+                replaces="open3d_slam_private_tpu/models/minimizers.py:441",
+                replaces_note="jnp.linalg.eigh, an XLA computation of the JAX package, not a "
+                              "Pallas kernel; the port's own kernel, so a CUDA graph can hold the solve",
+                shape="1x12x12 float64", **out["1x12x12"], at_headline_8x12x12=out["8x12x12"],
+                float32_6x6_eig_rel_err=rel6)
 
 
 def cdist_min(q, r, chunk=8192):
@@ -1241,8 +1344,8 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     (device time per stage, K1's device time per launch) and are left out of
     the timings. ``cell`` names the printed line and the kernels each stage
     must launch (``PIPELINE_NEED``); ``ate_limits`` the ATE p50 and max it
-    must hold. Returns the launch counts and K1's device microseconds per
-    launch at the SLAM step's shapes."""
+    must hold. Returns the launch counts, K1's device microseconds per
+    launch at the SLAM step's shapes and the scan's wall and device times."""
     from open3d_slam_private_tpu_torch.ops import pointcloud as pc
     from open3d_slam_private_tpu_torch.slam.pipeline import SlamConfig, SlamPipeline
 
@@ -1290,6 +1393,8 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     scan_wall = float(np.median(total_ms))
     scan_dev = sum(dev_ms.values())
     k1_us = clock.k1_device_us / clock.k1_profiled if clock.k1_profiled else None
+    summary = dict(scan_ms_p50=scan_wall, scan_ms_p90=float(np.percentile(total_ms, 90)),
+                   scan_device_ms=scan_dev, ate_p50_m=p50)
     say("pipeline", cell=cell, **note, ate_limits_m=list(ate_limits), scans=len(scans),
         raw_points=SCAN_POINTS, distance_m=PIPELINE_STEP_M * (len(scans) - 1),
         ate_p50_m=p50, ate_max_m=amax, submaps=len(pipe.submaps), active_submap=pipe.submaps.active_idx,
@@ -1310,7 +1415,292 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     for stage, names in PIPELINE_NEED[cell].items():
         if any(clock.launches[stage].get(k, 0) <= 0 for k in names):
             raise RuntimeError(f"{cell}: the {stage} stage missed {names}: {clock.launches}")
-    return counts, k1_us
+    return counts, k1_us, summary
+
+
+REALTIME_MODES = (("paced", 1), ("throughput", 8))
+REALTIME_CHECK_SCANS = 8
+# realtime-64k's ATE limits (p50, max). The production limits (0.05 /
+# 0.15 m) are not met here: the JAX package's RealtimePipeline reads 0.0555
+# / 0.2042 m on this drive at poll_every=1 and 0.0478 / 0.1941 m at 8
+# (tests/torch_realtime_drive.py jax, on the CPU), and these limits were set
+# from those readings. Its lifecycle forces a new submap at 90% of the bank
+# and seeds the new bank with up to half the old one, so the gate fires
+# every ~7 scans; without the gate the port reads 0.017 / 0.089 m
+# (tests/torch_realtime_drive.py port --variant no-force, on the card).
+REALTIME_ATE_LIMITS = (0.08, 0.25)
+
+
+def graph_kernel_nodes(graph):
+    """Nodes and kernel nodes of a kept CUDA graph (``raw_cuda_graph``,
+    read through libcuda's ``cuGraphGetNodes`` / ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    raw = graph.raw_cuda_graph()
+    cu = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {rc}")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(count))
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
+    return dict(nodes=int(count.value), kernels=kinds.get(0, 0))  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+class ReplayClock:
+    """CUDA events around every replay of a pipeline's graphs: the device
+    milliseconds of the step, rebuild and seeding graphs (a graph runs
+    back to back on the device, so its events time its device work)."""
+
+    def __init__(self, graphs):
+        self.events = {name: [] for name in ("step", "rebuild", "seed")}
+        for name in self.events:
+            graph = getattr(graphs, name)
+            replay = graph.replay
+
+            def timed_replay(replay=replay, name=name):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                replay()
+                b.record()
+                self.events[name].append((a, b))
+
+            graph.replay = timed_replay
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
+
+
+REALTIME_COUNTED = dict(pair_gn="pair_gn_fused", normal_eq="normal_eq_partial",
+                       moments="moments_partial", sym_eig="sym_eig_kernel")
+# The throughput mode's poll block run under torch.profiler (scans
+# 8 * REALTIME_PROFILED_BLOCK + 1 .. + 8): the device's busy time and idle
+# share come from its trace, and the block is left out of the walls.
+REALTIME_PROFILED_BLOCK = 5
+
+
+def graph_kernels(graph, names, replays=3):
+    """Launches of each kernel in ``names`` in one replay of ``graph``,
+    from ``torch.profiler`` device events (a replay launches every kernel
+    node the capture recorded). The profiler has lost an event of a
+    25,000-kernel replay now and then, so each count is the largest of
+    ``replays`` profiled replays. The replays write the graph's buffers:
+    restore the state after them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {n: 0 for n in names}
+    for _ in range(replays):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if event_device_us(e) > 0]
+        for n in names:
+            best[n] = max(best[n], sum(e.count for e in events if n in e.key))
+    return best
+
+
+def busy_ms(prof):
+    """Milliseconds in which the device ran at least one kernel, copy or
+    set of a ``torch.profiler`` session: the union of its device events'
+    intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    total, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3, len(spans)
+
+
+def phase_realtime(dev, slam_summary):
+    """realtime-64k: ``RealtimePipeline`` (one captured CUDA graph a scan)
+    on pipeline-64k's drive and production configs, paced (``poll_every=1``:
+    a scan's wall time is its latency) and throughput (``poll_every=8``).
+    Holds: the first ``REALTIME_CHECK_SCANS`` scans' stats from the graph
+    bit-equal to the eager (early-exit) ``rt_step`` on the card from the same
+    state; ATE within ``REALTIME_ATE_LIMITS``; at least 2 submaps; K1,
+    normal_eq, moments and sym_eig launched inside the step graph.
+
+    The path's launches: the wrappers count only what they launch eagerly
+    (a call recorded into a graph launches nothing), so each kernel's
+    launches in the timed runs are its launches in one replay of each graph
+    (``torch.profiler`` device events, ``graph_kernels``) times that graph's
+    replays in the runs, plus the wrappers' counts in the runs (counts set
+    to 0 after the capture, the eager checks left out). Prints ms/scan
+    p50/p90 next to ``SlamPipeline``'s from this run, the device's busy
+    time a scan and its idle share (the trace of one profiled poll block of
+    the throughput run), replays and kernel nodes a scan, the capture time,
+    and the device time of the masked (already converged) iterations: the
+    step graph's device time less the eager step's device kernel time on the
+    same state and scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open3d_slam_private_tpu_torch.ops import pointcloud as pc
+    from open3d_slam_private_tpu_torch.slam import realtime as rt
+    from open3d_slam_private_tpu_torch.slam.pipeline import SlamConfig
+
+    scene = synth_site(SITE_POINTS)
+    poses = drive(PIPELINE_SCANS, PIPELINE_STEP_M)
+    scans = [
+        pc.from_points(sample_scan(scene, SCAN_POINTS, np.linalg.inv(T), seed=300 + k,
+                                   sensor=T[:3, 3]), capacity=SCAN_POINTS, device=dev)
+        for k, T in enumerate(poses)
+    ]
+    truth = [np.linalg.inv(poses[0]) @ T for T in poses]
+    cfg = SlamConfig(loop_closure_enabled=False)
+    graph_names = ("step", "rebuild", "seed")
+    eager = {name: 0 for name in _counters()}
+    per_replay, replays = {}, {name: 0 for name in graph_names}
+    modes = {}
+    for mode, poll in REALTIME_MODES:
+        pipe = rt.RealtimePipeline(cfg, poll_every=poll, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        pipe.warmup(scans[0])
+        sync(dev)
+        capture_s = time.perf_counter() - t0
+        nodes = {name: graph_kernel_nodes(getattr(pipe._graphs, name)) for name in graph_names}
+        clock = ReplayClock(pipe._graphs)
+        walls, bits, ends = [], [], []
+        block = None
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        profiled = range(poll * REALTIME_PROFILED_BLOCK + 1, poll * (REALTIME_PROFILED_BLOCK + 1) + 1) \
+            if poll > 1 else range(0)
+        sync(dev)
+        reset_counts()
+        t_run = time.perf_counter()
+        for k, scan in enumerate(scans):
+            check = mode == "paced" and 1 <= k <= REALTIME_CHECK_SCANS
+            before = rt.tree_map(torch.clone, pipe._state) if check else None
+            if k in profiled and k == profiled[0]:
+                sync(dev)
+                prof.start()
+                block = time.perf_counter()
+            if poll == 1:  # paced: a scan's wall from dispatch to its polled pose
+                sync(dev)
+            t = time.perf_counter()
+            pipe.process_scan(scan, 0.1 * k)
+            if poll == 1:
+                sync(dev)
+                if k:
+                    walls.append((time.perf_counter() - t) * 1e3)
+            if k in profiled and k == profiled[-1]:
+                sync(dev)
+                block = (time.perf_counter() - block) * 1e3
+                prof.stop()
+            ends.append(time.perf_counter())
+            if check:  # the eager step's launches are not the path's
+                held = read_counts()
+                _, eager_row = rt.rt_step(before, scan, torch.tensor(0.1, device=dev),
+                                          torch.eye(4, device=dev), pipe.cfg, rebuild_branch=False)
+                bits.append(bool(np.array_equal(eager_row.cpu().numpy(), pipe.frames[k].stats)))
+                for name, fn in _counters().items():
+                    fn.launches = held[name]
+        pipe.finish()
+        sync(dev)
+        run_s = time.perf_counter() - t_run
+        for name, c in read_counts().items():
+            eager[name] += c
+        replay_ms = clock.ms()
+        for name in graph_names:
+            replays[name] += len(replay_ms[name])
+        est = pipe.trajectory()
+        ate = np.array([np.linalg.norm(e[:3, 3] - t[:3, 3]) for e, t in zip(est, truth)])[1:]
+        n = len(scans) - 1
+        if poll > 1:  # throughput: a scan's share of each poll block (poll ends the block)
+            walls = [(ends[j + poll] - ends[j]) * 1e3 / poll for j in range(0, n - poll + 1, poll)
+                     if j + 1 != profiled[0]]
+        event_ms = sum(sum(v) for v in replay_ms.values()) / n
+        row = dict(poll_every=poll, capture_s=capture_s, scans=len(scans),
+                   ate_p50_m=float(np.median(ate)), ate_max_m=float(ate.max()), submaps=len(pipe.submaps),
+                   scan_ms_p50=float(np.median(walls)), scan_ms_p90=float(np.percentile(walls, 90)),
+                   scan_ms_mean=float(np.mean(walls)), run_ms_per_scan=run_s * 1e3 / n,
+                   replay_event_ms_per_scan=event_ms,
+                   step_graph_event_ms_p50=float(np.median(replay_ms["step"])),
+                   rebuild_graph_event_ms_p50=float(np.median(replay_ms["rebuild"])) if replay_ms["rebuild"] else None,
+                   replays=dict(step=len(replay_ms["step"]), rebuild=len(replay_ms["rebuild"]),
+                                seed=len(replay_ms["seed"])),
+                   replays_per_scan=pipe.graph_replays / n, graph_nodes=nodes)
+        if poll > 1:
+            busy, events = busy_ms(prof)
+            row["profiled_block"] = dict(
+                scans=[profiled[0], profiled[-1]], wall_ms_per_scan=block / poll,
+                device_busy_ms_per_scan=busy / poll, device_events=events,
+                idle_share=1.0 - busy / block,
+                idle_share_vs_unprofiled_walls=1.0 - (busy / poll) / row["scan_ms_mean"])
+        if bits:
+            row["graph_vs_eager_bit_equal"] = bits
+        modes[mode] = (row, pipe)
+        # One profiled replay of each graph names its kernels (the replays
+        # write the graphs' buffers, so the state is restored after them).
+        g = pipe._graphs
+        state0 = rt.tree_map(torch.clone, g.state)
+        per_replay[mode] = {name: graph_kernels(getattr(g, name), REALTIME_COUNTED.values())
+                            for name in graph_names}
+        rt._copy_into(g.state, state0)
+        for name in graph_names:
+            for kernel, per in REALTIME_COUNTED.items():
+                eager[kernel] += per_replay[mode][name][per] * len(replay_ms[name])
+    counts = eager
+    in_graph = {k: per_replay["paced"]["step"][v] for k, v in REALTIME_COUNTED.items()}
+
+    # The masked iterations' device time: the step graph's device time less
+    # the eager step's kernel time on the same state and scan.
+    row, pipe = modes["paced"]
+    g = pipe._graphs
+    state0 = rt.tree_map(torch.clone, g.state)
+    last = scans[-1]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.step.replay()
+    b.record()
+    sync(dev)
+    graph_ms = a.elapsed_time(b)
+    rt._copy_into(g.state, state0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g.step.replay()
+        sync(dev)
+    replay_dev_ms, _ = profiled_device_ms(prof)
+    held = read_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rt.rt_step(state0, last, torch.tensor(0.1, device=dev), torch.eye(4, device=dev), pipe.cfg,
+                   rebuild_branch=False)
+        sync(dev)
+    for name, fn in _counters().items():
+        fn.launches = held[name]
+    eager_ms, eager_top = profiled_device_ms(prof)
+    masked = dict(graph_event_ms=graph_ms, eager_kernel_ms=eager_ms,
+                  masked_iterations_ms=replay_dev_ms - eager_ms,
+                  profiled_replay_device_ms=replay_dev_ms, eager_top_device_items=eager_top,
+                  iterations_this_scan=float(g.stats[0, rt.IDX_ITERATIONS]))
+    out = {m: r for m, (r, _) in modes.items()}
+    say("realtime", cell="realtime-64k", ate_limits_m=list(REALTIME_ATE_LIMITS), raw_points=SCAN_POINTS,
+        distance_m=PIPELINE_STEP_M * (len(scans) - 1),
+        depth=f"{PIPELINE_SCANS} scans, not cut", modes=out, launches_per_replay=per_replay,
+        graph_replays=replays, masked=masked, launches=counts,
+        slam_pipeline=dict(scan_ms_p50=slam_summary["scan_ms_p50"], scan_ms_p90=slam_summary["scan_ms_p90"],
+                           scan_device_ms=slam_summary["scan_device_ms"], ate_p50_m=slam_summary["ate_p50_m"]))
+    paced = out["paced"]
+    if not all(paced.get("graph_vs_eager_bit_equal", [False])) or len(paced["graph_vs_eager_bit_equal"]) != REALTIME_CHECK_SCANS:
+        raise RuntimeError(f"realtime-64k: graph replay differs from eager rt_step: {paced.get('graph_vs_eager_bit_equal')}")
+    for m, r in out.items():
+        if not (r["ate_p50_m"] <= REALTIME_ATE_LIMITS[0] and r["ate_max_m"] <= REALTIME_ATE_LIMITS[1]):
+            raise RuntimeError(f"realtime-64k {m}: ATE p50 {r['ate_p50_m']} m, max {r['ate_max_m']} m")
+        if r["submaps"] < 2:
+            raise RuntimeError(f"realtime-64k {m}: {r['submaps']} submaps")
+    missing = [k for k, c in in_graph.items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"realtime-64k: {missing} did not launch inside the step graph: {in_graph}")
+    return counts, in_graph
 
 
 def _counters():
@@ -1323,10 +1713,12 @@ def _counters():
         select,
     )
 
+    from open3d_slam_private_tpu_torch.kernels import sym_eig
+
     return dict(pair_gn=pair_gn.pair_gn, gather_select=gather_select.gather_select,
                 pair_gn_k=pair_gn.pair_gn_k, rank_select_rows=select.rank_select_rows,
                 rank_select_table=select.rank_select_table, knn_brute=knn_brute.knn_brute,
-                normal_eq=normal_eq.normal_eq, moments=moments.moments)
+                normal_eq=normal_eq.normal_eq, moments=moments.moments, sym_eig=sym_eig.sym_eig)
 
 
 def reset_counts():
@@ -1721,17 +2113,19 @@ def main():
     hs = headline_setup(dev)
     kernels = phase_kernels(hs)
     # Each path's launch counts: set to 0 just before it, read just after.
-    pipeline_counts, k1_pipeline_us = phase_pipeline(dev)
+    pipeline_counts, k1_pipeline_us, slam_summary = phase_pipeline(dev)
+    realtime_counts, realtime_in_graph = phase_realtime(dev, slam_summary)
     # The smoke's drive takes each scan at one instant (``sample_scan``), so
     # the evaluation configuration runs with motion compensation off. Its
     # ATE limit is the JAX package's own accuracy in this configuration on
     # this drive (tests/torch_eval_drive.py, on the CPU: p50 0.0639 m, max
     # 0.1242 m), above the production configuration's 0.05 m.
-    eval_counts, _ = phase_pipeline(
+    eval_counts, _, _ = phase_pipeline(
         dev, eval_slam_config(motion_compensation=False), cell="pipeline-64k-eval", min_submaps=1,
         ate_limits=(0.08, 0.15), motion_compensation="off: the drive's scans are each taken at one instant",
         depth=f"{PIPELINE_SCANS} scans, not cut")
-    paths = dict(pipeline=pipeline_counts, pipeline_eval=eval_counts, mapper=phase_mapper(dev))
+    paths = dict(pipeline=pipeline_counts, realtime=realtime_counts, pipeline_eval=eval_counts,
+                 mapper=phase_mapper(dev))
     paths.update({f"headline_{leg}": c for leg, c in phase_headline(hs).items()})
     paths["gicp_b8"] = phase_gicp(hs)
     paths.update({f"register_pair_{m}": c for m, c in phase_register_pair(hs).items()})
@@ -1743,7 +2137,7 @@ def main():
     main_path = dict(pair_gn="pipeline", gather_select="headline_gather", pair_gn_k="headline_knn8",
                      rank_select_rows=None, rank_select_table="headline_select",
                      knn_brute="register_pair_brute_pallas", normal_eq="headline_knn8",
-                     moments="headline_moment")
+                     moments="headline_moment", sym_eig="realtime")
     for k in kernels:
         path = main_path[k["name"]]
         k["launches"] = paths[path][k["name"]] if path else sum(c[k["name"]] for c in paths.values())
@@ -1753,6 +2147,8 @@ def main():
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if c[k["name"]]}
         if k["name"] == "pair_gn":
             k["device_us_per_launch_in_pipeline"] = k1_pipeline_us
+        if k["name"] in realtime_in_graph:  # from the graphs' profiled replays
+            k["launches_per_step_replay"] = realtime_in_graph[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

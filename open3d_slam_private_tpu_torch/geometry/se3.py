@@ -112,7 +112,7 @@ def _v_matrix_inverse(omega: torch.Tensor) -> torch.Tensor:
 
 
 def _rt_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     bottom = bottom.expand(*R.shape[:-2], 1, 4)
     top = torch.cat([R, t[..., :, None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)

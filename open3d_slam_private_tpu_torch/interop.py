@@ -78,3 +78,26 @@ def config(cls, values):
                 v = config(type(default), v)
         kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def rt_state_from_jax(state, device=None):
+    """The port's ``slam.realtime.RtState`` from a JAX ``RtState`` (its
+    arrays read with ``np.asarray``): the odometry's previous scan, the
+    motion and pose, the scan-to-map reference with its cell list (queries
+    divide: the twin hands it to the next step as an argument), the cadence
+    counters and the active bank."""
+    from open3d_slam_private_tpu_torch.slam.realtime import RtState
+
+    op, ref, bank = state.odom_prev, state.ref, state.bank
+    return RtState(
+        odom_prev=point_batch(op.xyz, op.mask, dict(op.extras), device),
+        last_motion=tensor(state.last_motion, device, torch.float32),
+        map_pose=tensor(state.map_pose, device, torch.float32),
+        ref=icp_reference(ref.cloud.xyz, ref.cloud.mask, ref.cloud.extras.get("normals"), ref.centroid,
+                          table=ref.grid.table, cell_size=ref.grid.cell_size, dropped=ref.grid.dropped,
+                          device=device),
+        scans_since_reinit=tensor(state.scans_since_reinit, device, torch.int32),
+        last_insert_pos=tensor(state.last_insert_pos, device, torch.float32),
+        bank=submap_state(bank.cloud.xyz, bank.cloud.mask, bank.pose, bank.num_scans, device),
+        scans_in_active=tensor(state.scans_in_active, device, torch.int32),
+    )

@@ -95,6 +95,32 @@ def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}: {msg}")
 
 
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` for a kernel launched now. A call made
+    while the stream captures a CUDA graph records a node and launches
+    nothing, so it is not counted: a graph's launches are its replays',
+    read from the profiler's device events."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        fn.launches += 1
+
+
+def no_capture(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: called before
+    a kernel's per-device scratch grows. A graph holds the scratch by
+    address, so it must have its final size before the capture (the
+    capture's eager warm-up run sizes it) and never be reallocated while a
+    graph holds it."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what}: the per-device scratch would grow inside a CUDA graph capture; run the "
+            "same call once before capturing"
+        )
+
+
 def check_tensor(name, t, shape, dtypes, device) -> None:
     """Raise ValueError unless ``t`` is on ``device``, of one of ``dtypes``,
     of ``shape`` and contiguous (what a kernel's raw pointer assumes)."""

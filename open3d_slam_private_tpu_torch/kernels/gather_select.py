@@ -48,10 +48,12 @@ def scratch_words(N: int, T: int) -> int:
 def _buffers(dev, N: int, T: int):
     count = _COUNT.get(dev)
     if count is None or count.numel() < T:
+        _build.no_capture("gather_select")
         count = _COUNT[dev] = torch.zeros(T, dtype=torch.int32, device=dev)
     words = scratch_words(N, T)
     scratch = _SCRATCH.get(dev)
     if scratch is None or scratch.numel() < words:
+        _build.no_capture("gather_select")
         scratch = _SCRATCH[dev] = torch.empty(words, dtype=torch.int32, device=dev)
     return count, scratch
 
@@ -91,7 +93,7 @@ def gather_select(table, h, query_xyz, query_mask):
     if dev.type == "cpu":
         return gather_select_plain(table, h, query_xyz, query_mask)
     out = launch_grouped("gather_select", table, h, query_xyz, query_mask, by_coords=False)
-    gather_select.launches += 1
+    _build.count_launch(gather_select)
     return out
 
 

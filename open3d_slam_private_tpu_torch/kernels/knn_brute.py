@@ -98,7 +98,7 @@ def knn_brute(query, ref):
                                   packed.data_ptr(), part_d2.data_ptr(), part_ids.data_ptr(),
                                   d2.data_ptr(), ids.data_ptr(), stream)
     _build.check_launch(lib, "knn_brute", rc)
-    knn_brute.launches += 1
+    _build.count_launch(knn_brute)
     return d2, ids
 
 

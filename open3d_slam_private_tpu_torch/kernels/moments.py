@@ -62,7 +62,7 @@ def moments(kind: int, B: int, P: int, S: int, dev, p0=None, q=None, n=None, ns=
                                 B, P, S, 1.0 - epsilon, partial.data_ptr(), out.data_ptr(),
                                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, "moments", rc)
-    moments.launches += 1
+    _build.count_launch(moments)
     return out
 
 

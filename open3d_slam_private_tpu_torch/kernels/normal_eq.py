@@ -66,7 +66,7 @@ def normal_eq(src_xyz, ref_xyz, ref_normals, weights):
             B, N, K, partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(lib, "normal_eq", rc)
-    normal_eq.launches += 1
+    _build.count_launch(normal_eq)
     return out.as_strided((B, 6, 6), (N_OUT, 6, 1)), out.as_strided((B, 6), (N_OUT, 1), 36)
 
 

@@ -61,6 +61,8 @@ def unpack(out: torch.Tensor):
     (an index gather builds A from its upper triangle)."""
     idx = _SYM_ON.get(out.device)
     if idx is None:
+        if out.device.type == "cuda":
+            _build.no_capture("pair_gn unpack")
         idx = _SYM_ON[out.device] = torch.tensor(_SYM, device=out.device)
     A = out[:, idx].reshape(-1, 6, 6)
     return A, out[:, 21:27], out[:, 27], out[:, 28], out[:, 30]
@@ -210,12 +212,15 @@ _K1_PARTIAL: dict = {}  # device -> float32 partial rows of the blocks
 def _k1_buffers(dev, B: int, n_partial: int):
     """K1's per-device scratch, grown and never shrunk: the counters (the
     kernel's last block resets its own) and the blocks' partial rows. Calls
-    on one stream use them in turn."""
+    on one stream use them in turn. Growing raises inside a CUDA graph
+    capture (``_build.no_capture``)."""
     counter = _K1_COUNTER.get(dev)
     if counter is None or counter.numel() < B:
+        _build.no_capture("pair_gn")
         counter = _K1_COUNTER[dev] = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
     partial = _K1_PARTIAL.get(dev)
     if partial is None or partial.numel() < n_partial:
+        _build.no_capture("pair_gn")
         partial = _K1_PARTIAL[dev] = torch.empty(max(n_partial, 1 << 14), dtype=torch.float32,
                                                  device=dev)
     return counter, partial
@@ -277,7 +282,7 @@ def pair_gn(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
         with torch.cuda.device(dev):
             rc = lib.pair_gn_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check_launch(lib, "pair_gn", rc)
-    pair_gn.launches += 1
+    _build.count_launch(pair_gn)
     return unpack_k1(out)
 
 
@@ -325,7 +330,7 @@ def pair_gn_k(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
             float(max_d2), B, N, K, nblocks, partial.data_ptr(), out.data_ptr(), stream,
         )
     _build.check_launch(lib, "pair_gn_k", rc)
-    pair_gn_k.launches += 1
+    _build.count_launch(pair_gn_k)
     return unpack(out)
 
 

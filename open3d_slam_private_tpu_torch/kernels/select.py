@@ -93,7 +93,7 @@ def rank_select_rows(rows, query_xyz, query_mask):
             N, L // 8, out.data_ptr(), stream,
         )
     _build.check_launch(lib, "rank_select", rc)
-    rank_select_rows.launches += 1
+    _build.count_launch(rank_select_rows)
     return out
 
 
@@ -117,7 +117,7 @@ def rank_select_table(table, h, query_xyz, query_mask):
     if table.device.type == "cpu":
         return rank_select_table_plain(table, h, query_xyz, query_mask)
     out = launch_grouped("rank_select_table", table, h, query_xyz, query_mask, by_coords=True)
-    rank_select_table.launches += 1
+    _build.count_launch(rank_select_table)
     return out
 
 

@@ -72,6 +72,7 @@ from open3d_slam_private_tpu_torch.kernels.moments import gicp_moments, pair_sum
 from open3d_slam_private_tpu_torch.kernels.normal_eq import normal_eq
 from open3d_slam_private_tpu_torch.kernels.pair_gn import pair_gn, pair_gn_k
 from open3d_slam_private_tpu_torch.kernels.select import rank_select_table
+from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
 from open3d_slam_private_tpu_torch.models import localizability as xicp
 from open3d_slam_private_tpu_torch.models import minimizers
 from open3d_slam_private_tpu_torch.ops import cell_list as cell_mod
@@ -400,12 +401,14 @@ def _solve(A, b, cfg: ICPConfig, loc, analyse):
 
 
 def _gn_update(reading: PointBatch, src, res: MatchResult, T, cfg: ICPConfig, denom,
-               trim_limit=None, frozen_loc=None, prev_loc=None, fresh=None):
+               trim_limit=None, frozen_loc=None, prev_loc=None, fresh=None, fresh_any=None):
     """One GN step on matched pairs ``[B, N, k]`` at poses ``T`` (``src``:
     the reading moved by ``T``) -> (dT, loc, match ratio, overlap, resid,
     A). The X-ICP decision is ``frozen_loc`` when given, else the binary
     method detects for ``fresh`` problems (others keep ``prev_loc``) and
-    the ternary method analyses this iteration."""
+    the ternary method analyses this iteration. ``fresh_any``: whether any
+    problem is fresh, when the caller knows it without reading the device
+    (the static-trip loops); else it is read."""
     w = _weights(res, cfg, trim_limit=trim_limit)
     B, N, K = res.ids.shape
     if cfg.minimizer == "gicp":
@@ -421,8 +424,9 @@ def _gn_update(reading: PointBatch, src, res: MatchResult, T, cfg: ICPConfig, de
         loc = xicp._identity_result((B,), T.device)
     else:
         A, b = normal_eq(src, res.xyz.contiguous(), res.normals.contiguous(), w)
-        if frozen_loc is None and cfg.degeneracy.method == "optimized" and not bool(fresh.any()):
-            frozen_loc = prev_loc
+        if frozen_loc is None and cfg.degeneracy.method == "optimized":
+            if not (bool(fresh.any()) if fresh_any is None else fresh_any):
+                frozen_loc = prev_loc
         x, loc = _solve(A, b, cfg, frozen_loc,
                         lambda: _analysis(A, b, src, res, w, cfg, fresh, prev_loc))
         r = _dot3(src[:, :, None, :] - res.xyz, res.normals)
@@ -507,9 +511,27 @@ def _moment_system(reading: PointBatch, s: dict, res0: MatchResult, w0, cfg: ICP
     return lambda T: minimizers.point_to_plane_system_from_moments(T, mom)
 
 
+def _static_trips(path: str, R: int, max_iterations: int):
+    """The static-trip mode's (rounds, in-round iterations of round r): as
+    many as can hold an active problem. On the fused and direct paths a
+    problem still active at round r has run exactly r * R iterations (done
+    is final there); on the moment path at least r (each active round steps
+    it once or more, and a revisit may end a round early)."""
+    if path == "moment":
+        return max_iterations, lambda r: min(R, max_iterations - r)
+    return -(-max_iterations // R), lambda r: min(R, max_iterations - r * R)
+
+
 def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, cfg: ICPConfig,
-                     max_iterations: int) -> dict:
-    """Candidate-cached GN rounds over ``[B, N]`` readings from ``T0 [B, 4, 4]``."""
+                     max_iterations: int, static_trip: bool = False) -> dict:
+    """Candidate-cached GN rounds over ``[B, N]`` readings from ``T0 [B, 4, 4]``.
+
+    ``static_trip``: run every round and iteration that could hold an active
+    problem (:func:`_static_trips`), with no read of the device: the early
+    exits become no-ops (a finished problem's state is frozen by the done
+    masks) and the binary X-ICP detection runs in round 0, the only round
+    with fresh problems. The result equals the early-exit run's bit for
+    bit; a CUDA graph can capture it."""
     dev = T0.device
     B = T0.shape[0]
     R = cfg.candidate_refresh_every
@@ -524,11 +546,16 @@ def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, c
     optimized = cfg.degeneracy.method == "optimized"
     identity = xicp._identity_result((B,), dev)
 
+    if static_trip:
+        rounds, trips = _static_trips(path, R, max_iterations)
+    else:
+        trips = lambda r: R  # noqa: E731
+
     s = _init_state(T0, cfg)
     r = 0
     while r < rounds:
         round_active = ~s["done"] & (s["it"] < max_iterations)
-        if not bool(round_active.any()):
+        if not static_trip and not bool(round_active.any()):
             break
         src0 = se3.apply_transform(s["T"], xyz)
         res0, sat = _match_round(reading, ref, src0, cfg, n_valid)
@@ -547,7 +574,7 @@ def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, c
         if frozen:
             fresh = round_active & (s["it"] == 0)
             frozen_loc = s["loc"]
-            if not optimized or bool(fresh.any()):
+            if not optimized or (r == 0 if static_trip else bool(fresh.any())):
                 A0, b0 = normal_eq(src0, res0.xyz.contiguous(), res0.normals.contiguous(), w0)
                 frozen_loc = _analysis(A0, b0, src0, res0, w0, cfg, fresh, s["loc"])
 
@@ -608,13 +635,13 @@ def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, c
                                   xyz=res0.xyz, normals=res0.normals)
                 return _gn_update(reading, src, res, T, cfg, denom, trim_limit=trim_limit,
                                   frozen_loc=frozen_loc, prev_loc=identity,
-                                  fresh=torch.ones(B, dtype=torch.bool, device=dev))
+                                  fresh=torch.ones(B, dtype=torch.bool, device=dev), fresh_any=True)
 
             step = direct_step
         i = 0
-        while i < R:
+        while i < trips(r):
             active = round_active & ~s["done"] & (s["it"] < max_iterations)
-            if not bool(active.any()):
+            if not static_trip and not bool(active.any()):
                 break
             s = _step(s, active, T0, step(s["T"]), cfg)
             i += 1
@@ -636,23 +663,27 @@ def _run_cached_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, c
 
 
 def _run_iter_loop(reading: PointBatch, ref: ICPReference, T0: torch.Tensor, cfg: ICPConfig,
-                   max_iterations: int) -> dict:
+                   max_iterations: int, static_trip: bool = False) -> dict:
     """The per-iteration chain (match -> weights -> normal equations ->
-    solve every iteration) over ``[B, N]`` readings from ``T0 [B, 4, 4]``."""
+    solve every iteration) over ``[B, N]`` readings from ``T0 [B, 4, 4]``.
+    ``static_trip``: ``max_iterations`` iterations under the done masks, no
+    read of the device (the first is the only one with fresh problems)."""
     n_valid = torch.clamp(reading.count().float(), min=1.0)
     denom = n_valid * cfg.knn
     ref_padded = ref.cloud.padded_xyz() if cfg.matcher.startswith("brute") else None
 
     s = _init_state(T0, cfg)
-    while True:
+    i = 0
+    while not static_trip or i < max_iterations:
         active = ~s["done"] & (s["it"] < max_iterations)
-        if not bool(active.any()):
+        if not static_trip and not bool(active.any()):
             break
         src = se3.apply_transform(s["T"], reading.xyz)
         res = _match(src, reading.mask, ref, cfg, ref_padded)
         out = _gn_update(reading, src, res, s["T"], cfg, denom, prev_loc=s["loc"],
-                         fresh=active & (s["it"] == 0))
+                         fresh=active & (s["it"] == 0), fresh_any=(i == 0) if static_trip else None)
         s = _step(s, active, T0, out, cfg)
+        i += 1
     return s
 
 
@@ -686,10 +717,14 @@ def _advance(s: dict, T0, dT, match_ratio, overlap, resid, A, cfg: ICPConfig) ->
 
 
 def icp_batch(
-    readings: PointBatch, ref: ICPReference, init_T: torch.Tensor, cfg: ICPConfig
+    readings: PointBatch, ref: ICPReference, init_T: torch.Tensor, cfg: ICPConfig,
+    static_trip: bool = False,
 ) -> ICPResult:
     """Register ``B`` readings (``xyz [B, N, 3]``) against one reference from
-    ``init_T [B, 4, 4]``."""
+    ``init_T [B, 4, 4]``. ``static_trip``: run every GN round and iteration
+    that could hold an active problem, with no read of the device inside the
+    loops (what a CUDA graph captures); the result is the default
+    early-exit run's, bit for bit."""
     check_config(cfg)
     dev = init_T.device
     B = init_T.shape[0]
@@ -703,17 +738,18 @@ def icp_batch(
     coarse_iters = torch.zeros(B, dtype=torch.int32, device=dev)
     if cfg.coarse_iterations > 0 and cfg.coarse_stride > 1:
         cstate = run_loop(
-            _strided(readings, cfg.coarse_stride), ref, T0, cfg, cfg.coarse_iterations
+            _strided(readings, cfg.coarse_stride), ref, T0, cfg, cfg.coarse_iterations,
+            static_trip=static_trip,
         )
         T0 = cstate["T"]
         coarse_iters = cstate["it"]
-    final = run_loop(readings, ref, T0, cfg, cfg.max_iterations)
+    final = run_loop(readings, ref, T0, cfg, cfg.max_iterations, static_trip=static_trip)
 
     loc = final["loc"]
     degenerate = (loc.localizability_rot.amin(-1) < 0.5) | (loc.localizability_trans.amin(-1) < 0.5)
     # Spectral diagnostics + covariance from the final hessian, once.
     A = final["A"]
-    w6, V6 = torch.linalg.eigh(A)
+    w6, V6 = sym_eig(A)
     aw = w6.abs()
     inv = torch.where(aw > 1e-7 * aw.amax(-1, keepdim=True), 1.0 / w6, 0.0)
     cov = (V6 * inv[:, None, :]) @ V6.transpose(-1, -2)
@@ -739,13 +775,14 @@ def icp_batch(
     )
 
 
-def icp_single(reading: PointBatch, ref: ICPReference, init_T: torch.Tensor, cfg: ICPConfig) -> ICPResult:
+def icp_single(reading: PointBatch, ref: ICPReference, init_T: torch.Tensor, cfg: ICPConfig,
+               static_trip: bool = False) -> ICPResult:
     """Register one reading (``xyz [N, 3]``): :func:`icp_batch` with B = 1."""
     batch = PointBatch(
         xyz=reading.xyz[None], mask=reading.mask[None],
         extras={k: v[None] for k, v in reading.extras.items()},
     )
-    res = icp_batch(batch, ref, init_T[None], cfg)
+    res = icp_batch(batch, ref, init_T[None], cfg, static_trip=static_trip)
     return ICPResult(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
 
 
@@ -755,11 +792,12 @@ def _problem(batch: PointBatch, b: int) -> PointBatch:
 
 
 def register_pair(reading: PointBatch, reference: PointBatch, init_T: torch.Tensor,
-                  cfg: ICPConfig) -> ICPResult:
+                  cfg: ICPConfig, static_trip: bool = False) -> ICPResult:
     """One-shot registration of a reading (``xyz [N, 3]``) against a
     reference cloud (``[M, 3]``) from ``init_T [4, 4]``: build the reference,
     then :func:`icp_single`."""
-    return icp_single(reading, build_reference(reference, cfg, const_size=True), init_T, cfg)
+    return icp_single(reading, build_reference(reference, cfg, const_size=True), init_T, cfg,
+                      static_trip=static_trip)
 
 
 def register_batch(readings: PointBatch, references: PointBatch, init_Ts: torch.Tensor,

@@ -27,8 +27,8 @@ import dataclasses
 import torch
 
 from open3d_slam_private_tpu_torch.kernels.moments import pair_sums
+from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
 from open3d_slam_private_tpu_torch.models.minimizers import (
-    eigh_each,
     esum,
     solve_normal_equations,
     solve_symmetric_indefinite,
@@ -98,13 +98,13 @@ def solve_with_solution_remapping(A, b, cfg: DegeneracyConfig):
     """Unconstrained solve, then the directions whose eigenvalue is below
     the threshold (or the condition number) projected out -> (x [..., 6],
     LocalizabilityResult with the spectrum)."""
-    w, V = eigh_each(A)
+    w, V = sym_eig(A)
     aw = w.abs()
     cond = aw.amax(-1) / torch.clamp(aw.amin(-1), min=1e-30)
     if cfg.use_condition_number_threshold:
         thresh = cond[..., None]
     else:
-        thresh = torch.tensor(cfg.solution_remapping_threshold, dtype=A.dtype, device=A.device)
+        thresh = torch.full((), cfg.solution_remapping_threshold, dtype=A.dtype, device=A.device)
     keep = (w >= thresh).to(A.dtype)
     x = solve_normal_equations(A, b)
     P = esum("ik,jk->ij", V * keep[..., None, :], V)

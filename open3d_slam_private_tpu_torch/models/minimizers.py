@@ -20,6 +20,7 @@ import math
 import torch
 
 from open3d_slam_private_tpu_torch.geometry import se3
+from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
 
 
 def point_to_plane_normal_equations_bc(src_xyz, ref_xyz, ref_normals, weights):
@@ -76,25 +77,12 @@ def solve_normal_equations_fast(A: torch.Tensor, b: torch.Tensor, damping: float
     return solve_spd_unrolled(A, b, damping)
 
 
-def eigh_each(A: torch.Tensor):
-    """``torch.linalg.eigh`` of ``[..., n, n]``, one matrix a call. On the
-    card PyTorch hands a batch of small matrices to cuSOLVER's batched
-    Jacobi solver, which need not give a matrix the same bits in another
-    batch; alone, every matrix takes the same path in any batch."""
-    n = A.shape[-1]
-    flat = A.reshape(-1, n, n)
-    if flat.shape[0] == 0:
-        return torch.linalg.eigh(A)
-    parts = [torch.linalg.eigh(flat[i:i + 1]) for i in range(flat.shape[0])]
-    w = torch.cat([p[0] for p in parts]).reshape(A.shape[:-1])
-    return w, torch.cat([p[1] for p in parts]).reshape(A.shape)
-
-
 def solve_normal_equations(A: torch.Tensor, b: torch.Tensor, rcond: float = 1e-7) -> torch.Tensor:
-    """Minimum-norm solve of symmetric ``A x = b`` through eigh (one matrix
-    a call, :func:`eigh_each`): eigenvalues below ``rcond * max |eig|`` are
+    """Minimum-norm solve of symmetric ``A x = b`` through eigh (``sym_eig``:
+    a matrix's bits independent of its batch, and on the card no host read):
+    eigenvalues below ``rcond * max |eig|`` are
     treated as zero."""
-    w, V = eigh_each(A)
+    w, V = sym_eig(A)
     aw = w.abs()
     cutoff = rcond * aw.amax(-1, keepdim=True)
     inv_w = torch.where(aw > cutoff, 1.0 / w, 0.0)
@@ -156,15 +144,10 @@ def esum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
 
 
 def _gen(like: torch.Tensor) -> torch.Tensor:
-    """The skew map's generators ``[3, 3, 3]``: ``[p]_x = sum_d p_d G[d]``."""
-    return torch.tensor(
-        [
-            [[0.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]],
-            [[0.0, 0.0, 1.0], [0.0, 0.0, 0.0], [-1.0, 0.0, 0.0]],
-            [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 0.0]],
-        ],
-        dtype=like.dtype, device=like.device,
-    )
+    """The skew map's generators ``[3, 3, 3]``: ``[p]_x = sum_d p_d G[d]``,
+    made on the device (no host-to-device copy), zeros positive."""
+    G = _hat(torch.eye(3, dtype=like.dtype, device=like.device))
+    return torch.where(G != 0, G, torch.zeros_like(G))
 
 
 def _hat(v: torch.Tensor) -> torch.Tensor:

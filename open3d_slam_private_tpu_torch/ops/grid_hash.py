@@ -42,8 +42,22 @@ _NRM = slice(4, 7)
 def f32(value, device) -> torch.Tensor:
     """A 0-d float32 tensor on ``device``. Divisions go through tensors like
     this one, never through Python scalars: CUDA divides by a CPU scalar as
-    a multiply by its reciprocal, which moves cell boundaries by an ulp."""
+    a multiply by its reciprocal, which moves cell boundaries by an ulp.
+    A number is filled in on the device (no host-to-device copy, which a
+    CUDA graph could not capture); a sequence of numbers is copied."""
+    if torch.is_tensor(value):
+        return value.to(device=device, dtype=torch.float32)
+    if isinstance(value, (int, float)) or getattr(value, "ndim", None) == 0:
+        return torch.full((), float(value), dtype=torch.float32, device=device)
     return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def const3(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A ``[3]`` vector on ``device``: a tensor as it is, or three numbers
+    filled in on the device (no host-to-device copy)."""
+    if torch.is_tensor(values):
+        return values.to(device=device, dtype=dtype)
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device) for v in values])
 
 
 def recip(size: torch.Tensor) -> torch.Tensor:
@@ -97,8 +111,8 @@ def _cell_hash(cell: torch.Tensor, table_size: int) -> torch.Tensor:
 def empty_payload(rows: int, device) -> torch.Tensor:
     """``[rows, 8]`` empty payload slots: xyz at _PAD, id INVALID_ID."""
     table = torch.zeros((rows, _CH), dtype=torch.float32, device=device)
-    table[:, :3] = _PAD
-    table.view(torch.int32)[:, _IDX_CH] = INVALID_ID
+    table[:, :3].fill_(_PAD)
+    table.view(torch.int32)[:, _IDX_CH].fill_(INVALID_ID)
     return table
 
 
@@ -206,11 +220,9 @@ def _block_hashes(grid: GridHash, query_xyz: torch.Tensor):
     frac = u - torch.floor(u)
     step = torch.where(frac < 0.5, -1, 1).to(torch.int32)
     hashes = []
+    shifts = 2 - torch.arange(3, dtype=torch.int32, device=query_xyz.device)
     for bits in range(8):
-        offs = torch.tensor(
-            [(bits >> 2) & 1, (bits >> 1) & 1, bits & 1], dtype=torch.int32,
-            device=query_xyz.device,
-        )
+        offs = (bits >> shifts) & 1  # [(bits >> 2) & 1, (bits >> 1) & 1, bits & 1]
         hashes.append(_cell_hash(base + step * offs, grid.table_size))
     return hashes
 

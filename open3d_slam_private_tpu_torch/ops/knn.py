@@ -99,7 +99,8 @@ def knn_bruteforce(
     qm = query_mask.reshape(-1)
     dev = q.device
     m = ref_xyz.shape[0]
-    radius = torch.as_tensor(max_dist, dtype=torch.float32, device=dev)
+    radius = (max_dist.to(dev, torch.float32) if torch.is_tensor(max_dist)
+              else torch.full((), float(max_dist), dtype=torch.float32, device=dev))
     max_d2 = radius * radius
     dists = torch.full((q.shape[0], k), INF, device=dev)
     ids = torch.zeros((q.shape[0], k), dtype=torch.int32, device=dev)

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from open3d_slam_private_tpu_torch.ops.grid_hash import grid_match, grid_moments
+from open3d_slam_private_tpu_torch.ops.grid_hash import const3, grid_match, grid_moments
 from open3d_slam_private_tpu_torch.ops.knn import gather_matched, knn_bruteforce
 from open3d_slam_private_tpu_torch.ops.pointcloud import PointBatch
 
@@ -144,7 +144,7 @@ def _normals_from_neighbors(batch: PointBatch, nb, valid, orient_towards, return
     evals, evecs = eigh3x3(cov)
     normal = evecs[..., :, 0]
     if orient_towards is not None:
-        vp = torch.as_tensor(orient_towards, dtype=xyz.dtype, device=batch.device)
+        vp = const3(orient_towards, batch.device, xyz.dtype)
         flip = (normal * (vp - xyz)).sum(-1, keepdim=True) < 0
         normal = torch.where(flip, -normal, normal)
     ok = batch.mask & (valid.sum(-1) >= 3)
@@ -167,7 +167,7 @@ def estimate_normals_moments(
     _, evecs = eigh3x3(cov)
     normal = evecs[..., :, 0]
     if orient_towards is not None:
-        vp = torch.as_tensor(orient_towards, dtype=batch.xyz.dtype, device=batch.device)
+        vp = const3(orient_towards, batch.device, batch.xyz.dtype)
         flip = (normal * (vp - batch.xyz)).sum(-1, keepdim=True) < 0
         normal = torch.where(flip, -normal, normal)
     enough = cnt >= 3.0

@@ -151,7 +151,8 @@ def masked_quantile(values: torch.Tensor, mask: torch.Tensor, q, axis: int = -1)
     svals = torch.sort(torch.where(mask, values, big), dim=axis).values
     count = mask.sum(axis, dtype=torch.int32)
     n = values.shape[axis]
-    qf = torch.as_tensor(q, dtype=torch.float32, device=values.device)
+    qf = (q.to(values.device, torch.float32) if torch.is_tensor(q)
+          else torch.full((), float(q), dtype=torch.float32, device=values.device))
     idx = torch.minimum((count.float() * qf).to(torch.int32), torch.clamp(count - 1, min=0))
     idx = torch.clamp(idx, 0, n - 1).to(torch.int64)
     return torch.take_along_dim(svals, idx.unsqueeze(axis), dim=axis).squeeze(axis)

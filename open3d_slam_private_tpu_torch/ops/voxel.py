@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from open3d_slam_private_tpu_torch.ops.grid_hash import cell_coords, f32, floor_cells, recip
+from open3d_slam_private_tpu_torch.ops.grid_hash import cell_coords, const3, f32, floor_cells, recip
 from open3d_slam_private_tpu_torch.ops.pointcloud import PAD_COORD, PointBatch
 
 _AXIS_BITS = 20
@@ -58,7 +58,7 @@ def voxel_downsample(
     order0 = _stable_argsort(key_lo)
     order = order0[_stable_argsort(key_hi[order0])]
     if priority_center is not None:
-        center = torch.as_tensor(priority_center, dtype=torch.float32, device=dev)
+        center = const3(priority_center, dev)
         d = (cell.float() + 0.5) * vs - center
         dist = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
         band_m = 32.0 * vs

@@ -92,7 +92,7 @@ def process_scan_for_matching(scan: PointBatch, cfg: MapperConfig) -> PointBatch
     shedding the farthest range bands under capacity pressure."""
     xyz = scan.xyz
     d2 = (xyz[:, 0] * xyz[:, 0] + xyz[:, 1] * xyz[:, 1]) + xyz[:, 2] * xyz[:, 2]
-    r = torch.as_tensor(cfg.scan_crop_radius, dtype=torch.float32, device=scan.device)
+    r = grid_hash.f32(cfg.scan_crop_radius, scan.device)
     s = scan.with_mask(d2 <= r * r)
     return voxel_downsample(
         s, cfg.scan_voxel_size, capacity=cfg.scan_capacity,

@@ -48,7 +48,7 @@ def create(capacity: int, pose: Optional[torch.Tensor] = None, device=None) -> S
 def crop_around(cloud: PointBatch, center: torch.Tensor, radius) -> PointBatch:
     """Keep the points within ``radius`` of ``center``."""
     d2 = _sq3(cloud.xyz - center)
-    r = torch.as_tensor(radius, dtype=torch.float32, device=cloud.device)
+    r = grid_hash.f32(radius, cloud.device)
     return cloud.with_mask(d2 <= r * r)
 
 

@@ -744,7 +744,8 @@ def test_batched_eigh_is_batch_independent_on_card(cuda_device, n):
     """``torch.linalg.eigh`` of small matrices (zero and rank-deficient ones
     among them, as the X-ICP solves give) gives each matrix the same bits in
     a batch of 4, 12 or 48 as in a batch of 192 and alone. (The chains call
-    it one matrix at a time all the same, ``minimizers.eigh_each``.)"""
+    it one matrix at a time on CPU tensors all the same, and the ``sym_eig``
+    kernel on the card.)"""
     g = torch.Generator().manual_seed(n)
     X = torch.randn(192, n, n + 2, generator=g)
     M = X @ X.transpose(-1, -2)
@@ -759,3 +760,255 @@ def test_batched_eigh_is_batch_independent_on_card(cuda_device, n):
     for i in range(4):
         wi, Vi = torch.linalg.eigh(M[i:i + 1])
         assert torch.equal(wi, w[i:i + 1]) and torch.equal(Vi, V[i:i + 1])
+
+
+def _sym_mats(rng, B, n, dtype):
+    """Symmetric test matrices as the chain hands them: SPD normal
+    equations, KKT matrices with inert zero rows (n = 12), rank-deficient
+    and zero ones."""
+    X = rng.normal(size=(B, n, n))
+    M = X @ X.transpose(0, 2, 1) * 100.0
+    if n == 12:
+        M[::2, 6:, 6:] = 0.0
+        M[::2, 9:, :] = 0.0
+        M[::2, :, 9:] = 0.0
+    M[3::7] = 0.0
+    M[5::7, -1, :] = 0.0
+    M[5::7, :, -1] = 0.0
+    return torch.tensor(M, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(12, torch.float64), (6, torch.float64), (6, torch.float32),
+                                     (3, torch.float64), (5, torch.float64)])
+def test_sym_eig_kernel_matches_plain(rng, cuda_device, n, dtype):
+    """The Jacobi kernel against ``torch.linalg.eigh`` (its plain version):
+    eigenvalues within a few ulps of the matrix's scale, orthonormal
+    eigenvectors that rebuild the matrix, the same minimum-norm
+    pseudo-solve; one launch a call."""
+    from open3d_slam_private_tpu_torch.kernels import sym_eig as tse
+    from open3d_slam_private_tpu_torch.models import minimizers
+
+    M = _sym_mats(rng, 40, n, dtype).to(cuda_device)
+    before = tse.sym_eig.launches
+    w, V, sweeps = tse.sym_eig(M, sweeps=True)
+    assert tse.sym_eig.launches == before + 1
+    assert int(sweeps.max()) < tse.MAX_SWEEPS
+    eps = torch.finfo(dtype).eps
+    scale = M.abs().amax(dim=(-2, -1)).double() + 1e-300
+    wp, _ = tse.sym_eig_plain(M.cpu())
+    assert ((w.double().cpu() - wp.double()).abs().amax(-1) <= 64 * n * eps * scale.cpu()).all()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda_device)
+    Vd = V.double()
+    assert ((Vd.mT @ Vd - eye).abs().amax(dim=(-2, -1)) <= 64 * n * eps).all()
+    rebuilt = Vd @ torch.diag_embed(w.double()) @ Vd.mT
+    assert ((rebuilt - M.double()).abs().amax(dim=(-2, -1)) <= 64 * n * eps * scale).all()
+    rhs = torch.tensor(rng.normal(size=(40, n)), dtype=dtype, device=cuda_device)
+    got = minimizers.solve_normal_equations(M, rhs).double().cpu()
+    want = minimizers.solve_normal_equations(M.cpu(), rhs.cpu()).double()
+    tol = 1e-6 if dtype == torch.float64 else 1e-2
+    assert ((got - want).abs() <= tol * (want.abs() + 1.0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(12, torch.float64), (6, torch.float32), (3, torch.float64)])
+def test_sym_eig_batch_independence_on_card(rng, cuda_device, n, dtype):
+    """One matrix alone and inside batches of 4 and 64: the same bits."""
+    from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
+
+    M = _sym_mats(rng, 64, n, dtype).to(cuda_device)
+    w, V = sym_eig(M)
+    for i in (0, 3, 5, 17, 63):
+        wi, Vi = sym_eig(M[i:i + 1])
+        assert torch.equal(wi[0], w[i]) and torch.equal(Vi[0], V[i])
+    w4, V4 = sym_eig(M[:4])
+    assert torch.equal(w4, w[:4]) and torch.equal(V4, V[:4])
+
+
+@pytest.mark.cuda
+def test_sym_eig_kernel_refuses_bad_inputs(cuda_device):
+    from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
+
+    for bad in (torch.zeros(2, 17, 17, device=cuda_device, dtype=torch.float64),
+                torch.zeros(2, 6, 5, device=cuda_device),
+                torch.zeros(2, 6, 6, device=cuda_device, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            sym_eig(bad)
+    w, V = sym_eig(torch.zeros(0, 6, 6, device=cuda_device))
+    assert w.shape == (0, 6) and V.shape == (0, 6, 6)
+
+
+@pytest.mark.cuda
+def test_scratch_growth_inside_capture_raises(rng, cuda_device):
+    """A kernel scratch buffer that would have to grow while a CUDA graph is
+    being captured raises (a graph holds the old buffer by address)."""
+    args = _pairs(rng, B=2, n=3000, device=cuda_device)
+    tpg.pair_gn(*args)  # sized outside the capture: captures fine
+    saved = tpg._K1_COUNTER.pop(cuda_device, None), tpg._K1_PARTIAL.pop(cuda_device, None)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="scratch would grow inside a CUDA graph capture"):
+            with torch.cuda.graph(graph):
+                tpg.pair_gn(*args)
+    finally:
+        for cache, buf in zip((tpg._K1_COUNTER, tpg._K1_PARTIAL), saved):
+            if buf is not None:
+                cache[cuda_device] = buf
+    torch.cuda.synchronize()
+    out = tpg.pair_gn(*args)  # the wrapper still works after the refused capture
+    assert torch.isfinite(out[0]).all()
+
+
+@pytest.mark.cuda
+def test_captured_call_counts_no_launch(rng, cuda_device):
+    """A wrapper called while a CUDA graph is captured records a node and
+    launches nothing, so its count stays; the graph's replays compute what
+    the eager call computes."""
+    from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
+
+    M = _sym_mats(rng, 8, 12, torch.float64).to(cuda_device)
+    want, _ = sym_eig(M)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sym_eig(M)
+    torch.cuda.current_stream().wait_stream(side)
+    before = sym_eig.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        w, _ = sym_eig(M)
+    assert sym_eig.launches == before
+    w.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert sym_eig.launches == before and torch.equal(w, want)
+
+
+def _rt_scene(n=20000, seed=0):
+    """``tests/test_realtime.py``'s ``synth_scene`` in numpy (no JAX here)."""
+    g = np.random.default_rng(seed)
+    half = n // 2
+    floor = np.c_[g.uniform(-30, 30, (half, 2)), g.normal(0, 0.02, (half, 1))]
+    walls = []
+    for i in range(6):
+        m = (n - half) // 6
+        ang, d = 2 * np.pi * i / 6, g.uniform(8, 20)
+        u = np.array([np.cos(ang), np.sin(ang)])
+        t, h = g.uniform(-8, 8, (m, 1)), g.uniform(0, 4, (m, 1))
+        walls.append(np.c_[d * u[None, :] + t * np.array([[-u[1], u[0]]]), h])
+    return np.vstack([floor] + walls).astype(np.float32)
+
+
+def _rt_scan(scene, pose, n, seed):
+    """``tests/test_realtime.py``'s ``sample``: ``n`` visible points seen
+    from ``pose`` with 1 cm noise."""
+    g = np.random.default_rng(seed)
+    local = (np.linalg.inv(pose) @ np.c_[scene, np.ones(len(scene))].T).T[:, :3]
+    r = np.linalg.norm(local, axis=1)
+    vis = np.flatnonzero((r < 30) & (r > 1))
+    sel = g.choice(vis, size=n, replace=len(vis) < n)
+    return tpc.from_points((local[sel] + g.normal(size=(n, 3)) * 0.01).astype(np.float32), capacity=n)
+
+
+def _rt_setup():
+    """``tests/test_realtime.py``'s ``small_cfg`` with the mapper on the fused
+    path (as in production) and a 1 m creation radius, and an out-and-back
+    drive of 16 scans of 1,024 points."""
+    from open3d_slam_private_tpu_torch.models import icp as icp_mod
+    from open3d_slam_private_tpu_torch.slam import pipeline as tpipe
+    from open3d_slam_private_tpu_torch.slam.odometry import OdometryConfig
+    from open3d_slam_private_tpu_torch.slam.submap_collection import SubmapCollectionConfig
+
+    icp_map = icp_mod.ICPConfig(knn=1, max_match_dist=1.0, matcher="grid", grid_table_size=1 << 12,
+                                grid_bucket_cap=48, trimmed_ratio=0.85, max_iterations=8,
+                                coarse_iterations=4, coarse_stride=4, candidate_refresh_every=6,
+                                fast_trimming=True, fused_kernel=True)
+    odo = OdometryConfig(voxel_size=0.3, max_range=30.0, max_points=2048)
+    odo = dataclasses.replace(odo, icp=dataclasses.replace(odo.icp, grid_table_size=1 << 11))
+    cfg = tpipe.SlamConfig(
+        odometry=odo,
+        mapper=dataclasses.replace(MapperConfig(), icp=icp_map, scan_voxel_size=0.2, scan_capacity=2048,
+                                   submap_capacity=1 << 13, min_movement_for_insertion=0.05),
+        submaps=SubmapCollectionConfig(submap_capacity=1 << 13, creation_radius=1.0,
+                                       activation_radius=1.5, min_scans_before_switch=2),
+        use_imu_attitude_init=False, loop_closure_enabled=False)
+    scene = _rt_scene()
+    T = np.eye(4)
+    T[:3, 3] = [2.0, 0.0, 1.0]
+    step = se3.exp_se3(torch.tensor([0, 0, 0, 0.3, 0, 0], dtype=torch.float64)).numpy()
+    scans = []
+    for i in range(16):
+        scans.append(_rt_scan(scene, T, 1024, 100 + i))
+        T = T @ (step if i < 8 else np.linalg.inv(step))
+    return cfg, scans
+
+
+@pytest.mark.cuda
+def test_realtime_graph_replay_matches_eager_rt_step(cuda_device):
+    """``RealtimePipeline`` on the card replays its captured step graph; each
+    replay's stats row equals, bit for bit, the eager (early-exit)
+    ``rt_step`` from the same state on the card. An out-and-back drive with
+    a 1 m creation radius runs the seeding graph and a re-activation (a
+    stored bank copied into the graphs' live bank) between replays. The
+    config is ``tests/test_realtime.py``'s ``small_cfg`` with the mapper on
+    the fused path, as in production."""
+    from open3d_slam_private_tpu_torch.slam import realtime as trt
+
+    cfg, scans = _rt_setup()
+    pipe = trt.RealtimePipeline(cfg, poll_every=1, device=cuda_device)
+    pipe.process_scan(scans[0], 0.0)
+    assert pipe._graphs is not None
+    active = [pipe.submaps.active_idx]
+    for k in range(1, len(scans)):
+        before = trt.tree_map(torch.clone, pipe._state)
+        replays = pipe.graph_replays
+        pipe.process_scan(scans[k], 0.1 * k)  # replays; polled at once (poll_every=1)
+        assert pipe.graph_replays > replays
+        _, eager = trt.rt_step(before, scans[k].to(cuda_device), torch.tensor(0.1, device=cuda_device),
+                               torch.eye(4, device=cuda_device), pipe.cfg, rebuild_branch=False)
+        assert np.array_equal(pipe.frames[k].stats, eager.cpu().numpy()), k
+        active.append(pipe.submaps.active_idx)
+    pipe.finish()
+    assert np.isfinite(pipe.trajectory()).all()
+    left = {a for a, b in zip(active, active[1:]) if a != b}
+    assert len(pipe.submaps) >= 3
+    assert any(i in left and i < active[k - 1] for k, i in enumerate(active) if k), active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "chunk"])
+def test_realtime_graph_modes_match_eager(cuda_device, mode):
+    """The packed upload and the 4-scan chunk on the card: the step graph's
+    stats rows equal the eager ``rt_step_packed`` / ``rt_step_chunk`` from
+    the same state, bit for bit."""
+    from open3d_slam_private_tpu_torch.slam import realtime as trt
+
+    cfg, scans = _rt_setup()
+    dev = cuda_device
+    eye = torch.eye(4, device=dev)
+    if mode == "packed":
+        pipe = trt.RealtimePipeline(cfg, poll_every=1, h2d_mode="packed", device=dev)
+    else:
+        pipe = trt.RealtimePipeline(cfg, poll_every=4, chunk_size=4, device=dev)
+    pipe.process_scan(scans[0], 0.0)
+    checked = 0
+    for k in range(1, len(scans)):
+        if mode == "packed" or k % 4 == 1:
+            before = trt.tree_map(torch.clone, pipe._state)
+        pipe.process_scan(scans[k], 0.1 * k)
+        if mode == "packed":
+            packed, header = trt.pack_scan_u16(scans[k].xyz.numpy(), scans[k].mask.numpy(), None)
+            _, eager = trt.rt_step_packed(before, trt.packed_tensor(packed, dev), torch.from_numpy(header).to(dev),
+                                          torch.tensor(0.1, device=dev), eye, pipe.cfg, has_times=False,
+                                          rebuild_branch=False)
+            assert np.array_equal(pipe.frames[k].stats, eager.cpu().numpy()), k
+            checked += 1
+        elif k % 4 == 0:
+            chunk = tpc.stack([s.to(dev) for s in scans[k - 3:k + 1]])
+            _, eager = trt.rt_step_chunk(before, chunk, torch.full((4,), 0.1, device=dev), eye.expand(4, 4, 4),
+                                         pipe.cfg, rebuild_branch=False)
+            got = np.stack([pipe.frames[j].stats for j in range(k - 3, k + 1)])
+            assert np.array_equal(got, eager.cpu().numpy()), k
+            checked += 4
+    pipe.finish()
+    assert checked >= 12 and np.isfinite(pipe.trajectory()).all()

@@ -41,12 +41,16 @@ def _gap(a, b) -> float:
     return float(np.linalg.norm((np.linalg.inv(a) @ b)[:3, 3]))
 
 
-def main(seed: int, steps: int = 3) -> None:
+def main(seed: int, steps: int = 3, odometry_from_jax: bool = False) -> None:
+    """``odometry_from_jax``: the port's pipeline takes the JAX odometry's
+    pose each step instead of its own, so that only its mapper parts."""
     rng = np.random.default_rng(seed)
     S = scene(rng)
     jcfg = _config()
     jp = jpipe.SlamPipeline(jcfg)
     tp = tpipe.SlamPipeline(interop.config(tpipe.SlamConfig, jcfg), device="cpu")
+    if odometry_from_jax:
+        tp.odometry.add_scan = lambda scan: jp.odometry.pose.copy()
     g_body = np.array([0.0, 9.81 * np.sin(0.02), 9.81 * np.cos(0.02)])
     for k in range(10):  # the test's IMU boot
         acc = g_body + 0.01 * rng.normal(size=3)
@@ -57,8 +61,8 @@ def main(seed: int, steps: int = 3) -> None:
         jb = jpc.from_points(pts, capacity=4096, extras={"times": times[:, None]})
         jp.process_scan(jb, SWEEP * k)
         tp.process_scan(interop.point_batch(jb.xyz, jb.mask, {"times": jb.extras["times"]}), SWEEP * k)
-        print(f"step {k}: odometry {_gap(jp.odometry.pose, tp.odometry.pose):.3g} m, "
-              f"pipeline {_gap(jp.pose, tp.pose):.3g} m")
+        odo = "JAX's" if odometry_from_jax else f"{_gap(jp.odometry.pose, tp.odometry.pose):.3g} m"
+        print(f"step {k}: odometry {odo}, pipeline {_gap(jp.pose, tp.pose):.3g} m")
 
     ocfg = jcfg.odometry
     tcfg = interop.config(todo.OdometryConfig, ocfg)
