@@ -21,8 +21,11 @@ float64 einsum and to giving a problem the same bits alone as in its batch;
 moments (the cached rounds' moment sums, point-to-plane and GICP, and the
 raw pair sums of the X-ICP analysis) likewise, a problem alone against the
 same problem in a batch of 64; sym_eig (the Jacobi eigensolver of the X-ICP
-solves, which a CUDA graph can hold) on the headline's KKT matrices against
-``torch.linalg.eigh``, a matrix alone against inside a batch of 64.
+solves, which a CUDA graph can hold) on every shape the chain hands it (the
+headline's KKT matrices at 1 and 8 x 12 x 12 float64, the diagnostics' 6 x 6
+float32, the ternary analysis's 3 x 3 blocks) against ``torch.linalg.eigh``,
+a matrix alone against inside a batch of 64, with its sweeps and its share
+of the chain floor the kernel's probe times on the card.
 Then it drives the port's
 paths through their user entry points: the ``SlamPipeline`` (LiDAR odometry
 -> mapper -> submap collection, loop closure off) over a 96-scan synthetic
@@ -30,7 +33,9 @@ drive of 28.5 m that crosses the 20 m submap creation radius; the
 ``RealtimePipeline`` on the same drive and configs (realtime-64k: one
 captured CUDA graph a scan, paced and throughput, its first scans held bit
 for bit to the eager ``rt_step``, its kernels counted inside the graph from
-profiler device events), and the ``SlamPipeline`` again in
+profiler device events, and each kernel's device time inside a profiled
+step replay; the moments kernel's raw pair sums timed at the shapes the step
+hands them), and the ``SlamPipeline`` again in
 the evaluation protocol's configuration (``tools/run_eval.py``: the
 mapper's direct in-round path, exact trimming, with X-ICP's ternary
 method); the ``Mapper``
@@ -59,7 +64,12 @@ it exits non-zero before printing any result.
     python3 chip_smoke.py --side DIR
 
 runs the phases that compare two checkouts, from the checkout at ``DIR``
-(see :func:`compare_side`).
+(see :func:`compare_side`), and
+
+    python3 chip_smoke.py --side DIR --sym-eig
+
+times that checkout's sym_eig on the matrices the last full run saved
+(:func:`sym_eig_side`).
 """
 
 from __future__ import annotations
@@ -913,27 +923,70 @@ def _check_moments(hs, T, src0):
                 shape=f"{B}x{N}x1", **main, gicp=out["gicp"])
 
 
-def _kkt_matrices(hs):
-    """The 12 x 12 float64 KKT matrices and right-hand sides the headline's
-    X-ICP solves hand ``sym_eig`` (the first equality-constrained solve of
-    one ``icp_batch`` call, 8 problems), recorded from the chain."""
+SYM_EIG_USERS = ("minimizers", "localizability", "icp")  # modules that call sym_eig by name
+SYM_EIG_INPUTS = "build/sym_eig_inputs.pt"  # the main run's matrices, for --side DIR --sym-eig
+
+
+class record_calls:
+    """Within it, the function ``name`` of each module in ``modules`` (the
+    modules that call it by name) records into ``seen``, for each key of its
+    first argument (``key(x)``), that key's first argument (a copy) and its
+    calls."""
+
+    def __init__(self, seen, name, modules, key):
+        import importlib
+
+        self.seen, self.name, self.key = seen, name, key
+        self.mods = [importlib.import_module(f"open3d_slam_private_tpu_torch.models.{m}") for m in modules]
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.mods[0], self.name)
+
+        def record(x, *args, **kwargs):
+            k = self.key(x)
+            if k not in self.seen:
+                self.seen[k] = dict(first=x.detach().clone(), calls=0)
+            self.seen[k]["calls"] += 1
+            return fn(x, *args, **kwargs)
+
+        for m in self.mods:
+            setattr(m, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            setattr(m, self.name, self.fn)
+
+
+def record_sym_eig(seen):
+    """``sym_eig``'s inputs by (shape, type), in the modules that call it."""
+    return record_calls(seen, "sym_eig", SYM_EIG_USERS,
+                        lambda A: ("x".join(map(str, A.shape)), str(A.dtype).replace("torch.", "")))
+
+
+def sym_eig_inputs(hs):
+    """The matrices the chain hands ``sym_eig``, recorded from the headline
+    batch: the first KKT solve's 12 x 12 float64 (8 problems; one of them is
+    the SLAM step mapper's shape), the spectral diagnostics' 6 x 6 float32,
+    and the ternary analysis's 3 x 3 blocks (``method="equality_constraints"``,
+    ``[problem, direction, 3, 3]``), one problem's each. Returns
+    ``{shape name: tensor}`` and the calls of each recorded (shape, type)."""
     from open3d_slam_private_tpu_torch.models import icp as icp_mod
-    from open3d_slam_private_tpu_torch.models import minimizers
 
-    seen = []
-    solve = minimizers.solve_normal_equations
-
-    def record(A, b, rcond=1e-7):
-        if A.shape[-1] == 12 and not seen:
-            seen.append((A.clone(), b.clone()))
-        return solve(A, b, rcond)
-
-    minimizers.solve_normal_equations = record
-    try:
-        icp_mod.icp_batch(hs["readings"], hs["ref"], hs["init"], hs["cfg"])
-    finally:
-        minimizers.solve_normal_equations = solve
-    return seen[0]
+    cfg = hs["cfg"]
+    ternary = dataclasses.replace(cfg, degeneracy=dataclasses.replace(cfg.degeneracy, method="equality_constraints"))
+    seen, seen_t = {}, {}
+    with record_sym_eig(seen):
+        icp_mod.icp_batch(hs["readings"], hs["ref"], hs["init"], cfg)
+    with record_sym_eig(seen_t):
+        icp_mod.icp_batch(hs["readings"], hs["ref"], hs["init"], ternary)
+    kkt = seen[("8x12x12", "float64")]["first"]
+    diag = seen[("8x6x6", "float32")]["first"]
+    blocks = next(v["first"] for (shape, _), v in seen_t.items() if shape.endswith("x3x3x3"))
+    inputs = {"1x12x12": kkt[:1].contiguous(), "8x12x12": kkt.contiguous(), "1x6x6": diag[:1].contiguous(),
+              "1x3x3x3": blocks[:1].contiguous()}
+    calls = {f"{k[0]} {k[1]}": v["calls"] for k, v in {**seen, **seen_t}.items()}
+    return inputs, calls
 
 
 def sym_eig_flops(sweeps: torch.Tensor, n: int) -> int:
@@ -943,65 +996,126 @@ def sym_eig_flops(sweeps: torch.Tensor, n: int) -> int:
     return int(sweeps.sum()) * n * (n - 1) // 2 * (18 * n + 15)
 
 
-def _check_sym_eig(hs):
-    """sym_eig (the Jacobi eigensolver the realtime step's graph holds) on
-    the headline's real KKT matrices at 1 x 12 x 12 (the SLAM step's mapper,
-    one problem) and 8 x 12 x 12 float64, against ``torch.linalg.eigh``:
-    eigenvalues within 1e-12 of the matrix's scale, the matrix rebuilt, the
-    pseudo-solve the chain takes, a matrix alone against inside a batch of
-    64 (bit-equal); and the 6 x 6 float32 of the spectral diagnostics.
-    plain_ms: one batched ``torch.linalg.eigh``; library_ms: the
-    loop of one ``torch.linalg.eigh`` a matrix that it replaces (the
-    chain's former ``minimizers.eigh_each``: one cuSOLVER call a matrix)."""
+def sym_eig_chain_floor(probe, n, sweeps):
+    """The design's floor (us) for a matrix that took ``sweeps``: the
+    probe's step chain times the steps of a sweep (n - 1, or n for an odd
+    n) times the sweeps, plus one stop test's chain."""
+    steps = n - 1 + (n & 1)
+    return (probe["step"]["ns"] * steps * sweeps + probe["test"]["ns"]) / 1e3
+
+
+def sym_eig_timings(inputs, probes=None):
+    """``sym_eig`` on each recorded shape: held against ``torch.linalg.eigh``
+    (eigenvalues and the rebuilt matrix within 1e-12 (float64) or 1e-5
+    (float32) of the matrix's scale, the float64 pseudo-solve within 1e-7
+    of the CPU's, fewer than 30 sweeps, each matrix's bits alone equal to
+    its bits inside a batch of 64), then timed: device us a launch
+    (profiler), wrapper ms (CUDA events) against the plain version
+    (``sym_eig_plain``: one ``torch.linalg.eigh`` a matrix) and one batched
+    ``torch.linalg.eigh`` call (library_ms), the roofline bound (bytes, or
+    the rotations' operations at the type's rate) and, with ``probes``
+    ({dtype: chain_probe}), the chain floor of the sweeps taken (the batch's
+    matrices run side by side: its most sweeps)."""
     from open3d_slam_private_tpu_torch.kernels import sym_eig as sek
     from open3d_slam_private_tpu_torch.models import minimizers
 
-    M8, rhs8 = _kkt_matrices(hs)
     out = {}
-    for shape, (M, rhs) in (("1x12x12", (M8[:1].contiguous(), rhs8[:1])), ("8x12x12", (M8, rhs8))):
-        B, n = M.shape[0], M.shape[-1]
+    for shape, M in inputs.items():
+        M = M.cuda()
+        n, dtype = M.shape[-1], M.dtype
+        f64 = dtype == torch.float64
+        flat = M.reshape(-1, n, n)
+        B = flat.shape[0]
         w, V, sweeps = sek.sym_eig(M, sweeps=True)
-        wp, Vp = torch.linalg.eigh(M)
-        scale = M.abs().amax(dim=(-2, -1))
+        wp, _ = torch.linalg.eigh(M)
+        scale = M.abs().amax(dim=(-2, -1)).double() + 1e-300
         err = float((w - wp).abs().amax())
-        rel = float(((w - wp).abs().amax(-1) / scale).amax())
-        rebuilt = float(((V @ torch.diag_embed(w) @ V.mT - M).abs().amax(dim=(-2, -1)) / scale).amax())
-        x = minimizers.solve_normal_equations(M, rhs).cpu()
-        xp = minimizers.solve_normal_equations(M.cpu(), rhs.cpu())
-        solve_rel = float(((x - xp).abs() / (xp.abs().amax(-1, keepdim=True) + 1e-300)).amax())
+        rel = float(((w - wp).abs().amax(-1).double() / scale).amax())
+        Vd, wd = V.double(), w.double()
+        rebuilt = float(((Vd @ torch.diag_embed(wd) @ Vd.mT - M.double()).abs().amax(dim=(-2, -1)) / scale).amax())
+        tol = 1e-12 if f64 else 1e-5
+        solve_rel = None
+        if f64:
+            rhs = torch.linspace(-1.0, 1.0, n, dtype=dtype, device=M.device).expand(M.shape[:-1]).contiguous()
+            x = minimizers.solve_normal_equations(M, rhs).cpu()
+            xp = minimizers.solve_normal_equations(M.cpu(), rhs.cpu())
+            solve_rel = float(((x - xp).abs() / (xp.abs().amax(-1, keepdim=True) + 1e-300)).amax())
         # The pseudo-solves of two float64 eigensolvers part by about the KKT
         # system's condition number times float64's epsilon.
-        if not (rel <= 1e-12 and rebuilt <= 1e-12 and solve_rel <= 1e-7 and int(sweeps.max()) < sek.MAX_SWEEPS):
-            raise RuntimeError(f"sym_eig {shape}: eigenvalues {rel}, rebuilt {rebuilt}, pseudo-solve "
+        if not (rel <= tol and rebuilt <= tol and (solve_rel is None or solve_rel <= 1e-7)
+                and int(sweeps.max()) < sek.MAX_SWEEPS):
+            raise RuntimeError(f"sym_eig {shape} {dtype}: eigenvalues {rel}, rebuilt {rebuilt}, pseudo-solve "
                                f"{solve_rel}, sweeps {sweeps.tolist()}")
-        big = M.repeat(-(-64 // B), 1, 1)[:64].contiguous()
+        big = flat.repeat(-(-64 // B), 1, 1)[:64].contiguous()
         wb, Vb = sek.sym_eig(big)
-        alone = all(torch.equal(wb[i], w[i]) and torch.equal(Vb[i], V[i]) for i in range(B))
+        w_flat, V_flat = w.reshape(-1, n), V.reshape(-1, n, n)
+        alone = all(torch.equal(wb[i], w_flat[i]) and torch.equal(Vb[i], V_flat[i]) for i in range(B))
         if not alone:
             raise RuntimeError(f"sym_eig {shape}: a matrix's bits depend on its batch")
-        nbytes = B * (2 * n * n + n) * 8 + B * 4
-        t = timed("sym_eig", lambda m=M: sek.sym_eig(m), lambda m=M: torch.linalg.eigh(m),
-                  nbytes, sym_eig_flops(sweeps, n),
-                  library_fn=lambda m=M: [torch.linalg.eigh(m[i:i + 1]) for i in range(m.shape[0])],
-                  peak_flops=PEAK_FP64_FLOP_PER_S)
-        out[shape] = dict(max_abs_err=err, eig_rel_err=rel, rebuilt_rel_err=rebuilt,
-                          pseudo_solve_rel_err=solve_rel, sweeps=sweeps.tolist(),
-                          batch_independent_in_64=alone, **t)
-        say("kernel", name="sym_eig", shape=shape, dtype="float64", **out[shape])
-    A6 = M8[:, :6, :6].float().contiguous()  # the normal equations' block, float32
-    w6, V6 = sek.sym_eig(A6)
-    wp6, _ = torch.linalg.eigh(A6)
-    scale6 = A6.abs().amax(dim=(-2, -1))
-    rel6 = float(((w6 - wp6).abs().amax(-1) / scale6).amax())
-    if rel6 > 1e-5:
-        raise RuntimeError(f"sym_eig 8x6x6 float32: eigenvalues {rel6} of the scale")
-    say("kernel_check", name="sym_eig", shape="8x6x6", dtype="float32", eig_rel_err=rel6)
+        size = 8 if f64 else 4
+        nbytes = B * (2 * n * n + n) * size + B * 4
+        t = timed("sym_eig", lambda m=M: sek.sym_eig(m), lambda m=M: sek.sym_eig_plain(m),
+                  nbytes, sym_eig_flops(sweeps, n), library_fn=lambda m=M: torch.linalg.eigh(m),
+                  peak_flops=PEAK_FP64_FLOP_PER_S if f64 else PEAK_FP32_FLOP_PER_S)
+        row = dict(dtype=str(dtype).replace("torch.", ""), matrices=B, n=n, sweeps=sweeps.reshape(-1).tolist(),
+                   max_abs_err=err, eig_rel_err=rel, rebuilt_rel_err=rebuilt, pseudo_solve_rel_err=solve_rel,
+                   batch_independent_in_64=alone, **t)
+        if probes is not None:
+            floor = sym_eig_chain_floor(probes[dtype], n, int(sweeps.max()))
+            row.update(chain_floor_us=floor, chain_floor_share=floor / t["device_us"] if t["device_us"] else None)
+        out[shape] = row
+    return out
+
+
+def _check_sym_eig(hs):
+    """sym_eig (the Jacobi eigensolver the realtime step's graph holds) on
+    the chain's own matrices (:func:`sym_eig_inputs`) at each shape it
+    hands the kernel, by :func:`sym_eig_timings`, with the chain floor from
+    the kernel's probe (``kernels.sym_eig.chain_probe``, both types). The
+    inputs are saved to ``SYM_EIG_INPUTS`` for ``--side DIR --sym-eig``,
+    which times another checkout's kernel on them."""
+    import os
+
+    from open3d_slam_private_tpu_torch.kernels import sym_eig as sek
+
+    inputs, calls = sym_eig_inputs(hs)
+    os.makedirs(os.path.dirname(SYM_EIG_INPUTS), exist_ok=True)
+    torch.save({k: v.cpu() for k, v in inputs.items()}, SYM_EIG_INPUTS)
+    probes = {dt: sek.chain_probe(hs["init"].device, dt) for dt in (torch.float64, torch.float32)}
+    say("kernel_probe", name="sym_eig", probe={str(k).replace("torch.", ""): v for k, v in probes.items()},
+        headline_calls=calls)
+    out = sym_eig_timings(inputs, probes)
+    for shape, row in out.items():
+        say("kernel", name="sym_eig", shape=shape, **row)
+    main = out["1x12x12"]
     return dict(name="sym_eig", route="cuda", source="open3d_slam_private_tpu_torch/csrc/sym_eig.cu",
                 replaces="open3d_slam_private_tpu/models/minimizers.py:441",
                 replaces_note="jnp.linalg.eigh, an XLA computation of the JAX package, not a "
                               "Pallas kernel; the port's own kernel, so a CUDA graph can hold the solve",
-                shape="1x12x12 float64", **out["1x12x12"], at_headline_8x12x12=out["8x12x12"],
-                float32_6x6_eig_rel_err=rel6)
+                shape="1x12x12 float64", **main,
+                **{f"at_{k}": v for k, v in out.items() if k != "1x12x12"})
+
+
+def sym_eig_side(root):
+    """``--side DIR --sym-eig``: the checkout at ``DIR``'s ``sym_eig`` on the
+    main run's saved inputs (``SYM_EIG_INPUTS``), by this file's
+    :func:`sym_eig_timings` (no chain floor: the probe may not exist there).
+    Run it once per side, each in its own process, in one call to the card
+    (parent, change, change, parent)."""
+    import os
+    import sys
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import open3d_slam_private_tpu_torch
+
+    phase_device()
+    inputs = torch.load(SYM_EIG_INPUTS)
+    out = sym_eig_timings(inputs)
+    say("sym_eig_side", root=root, package=os.path.dirname(open3d_slam_private_tpu_torch.__file__),
+        shapes={k: dict(device_us=v["device_us"], ms=v["ms"], plain_ms=v["plain_ms"],
+                        library_ms=v["library_ms"], sweeps=v["sweeps"], eig_rel_err=v["eig_rel_err"])
+                for k, v in out.items()})
 
 
 def cdist_min(q, r, chunk=8192):
@@ -1560,6 +1674,7 @@ def phase_realtime(dev, slam_summary):
     graph_names = ("step", "rebuild", "seed")
     eager = {name: 0 for name in _counters()}
     per_replay, replays = {}, {name: 0 for name in graph_names}
+    raw_sums, eager_sym_eig = {}, {}
     modes = {}
     for mode, poll in REALTIME_MODES:
         pipe = rt.RealtimePipeline(cfg, poll_every=poll, device=dev)
@@ -1600,8 +1715,10 @@ def phase_realtime(dev, slam_summary):
             ends.append(time.perf_counter())
             if check:  # the eager step's launches are not the path's
                 held = read_counts()
-                _, eager_row = rt.rt_step(before, scan, torch.tensor(0.1, device=dev),
-                                          torch.eye(4, device=dev), pipe.cfg, rebuild_branch=False)
+                with record_calls(raw_sums, "pair_sums", ("localizability",), lambda x: "x".join(map(str, x.shape))), \
+                        record_sym_eig(eager_sym_eig):
+                    _, eager_row = rt.rt_step(before, scan, torch.tensor(0.1, device=dev),
+                                              torch.eye(4, device=dev), pipe.cfg, rebuild_branch=False)
                 bits.append(bool(np.array_equal(eager_row.cpu().numpy(), pipe.frames[k].stats)))
                 for name, fn in _counters().items():
                     fn.launches = held[name]
@@ -1670,6 +1787,7 @@ def phase_realtime(dev, slam_summary):
         g.step.replay()
         sync(dev)
     replay_dev_ms, _ = profiled_device_ms(prof)
+    step_kernels = kernels_by_key(prof, ("sym_eig_kernel", "pair_gn_fused", "normal_eq_", "moments_"))
     held = read_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rt.rt_step(state0, last, torch.tensor(0.1, device=dev), torch.eye(4, device=dev), pipe.cfg,
@@ -1683,6 +1801,16 @@ def phase_realtime(dev, slam_summary):
                   profiled_replay_device_ms=replay_dev_ms, eager_top_device_items=eager_top,
                   iterations_this_scan=float(g.stats[0, rt.IDX_ITERATIONS]))
     out = {m: r for m, (r, _) in modes.items()}
+    step_replays_per_scan = replays["step"] / (2 * (len(scans) - 1))
+    sym_eig_us = sum(v["device_us"] for k, v in step_kernels.items() if "sym_eig_kernel" in k)
+    say("realtime_step_kernels", cell="realtime-64k", profiled_step_replay=step_kernels,
+        sym_eig_device_us_per_launch=sym_eig_us / max(1, sum(v["launches"] for k, v in step_kernels.items()
+                                                         if "sym_eig_kernel" in k)),
+        sym_eig_device_ms_per_scan=sym_eig_us / 1e3 * step_replays_per_scan,
+        step_replays_per_scan=step_replays_per_scan,
+        eager_sym_eig_calls={f"{k[0]} {k[1]}": v["calls"] for k, v in eager_sym_eig.items()})
+    pair_sums_rows = time_pair_sums(raw_sums)
+    say("realtime_pair_sums", cell="realtime-64k", shapes=pair_sums_rows)
     say("realtime", cell="realtime-64k", ate_limits_m=list(REALTIME_ATE_LIMITS), raw_points=SCAN_POINTS,
         distance_m=PIPELINE_STEP_M * (len(scans) - 1),
         depth=f"{PIPELINE_SCANS} scans, not cut", modes=out, launches_per_replay=per_replay,
@@ -1700,7 +1828,45 @@ def phase_realtime(dev, slam_summary):
     missing = [k for k, c in in_graph.items() if c <= 0]
     if missing:
         raise RuntimeError(f"realtime-64k: {missing} did not launch inside the step graph: {in_graph}")
-    return counts, in_graph
+    return counts, in_graph, dict(step_replay_kernels=step_kernels, pair_sums=pair_sums_rows)
+
+
+def kernels_by_key(prof, names):
+    """Launches and device us of each ``__global__`` instantiation whose
+    name holds one of ``names``, in a ``torch.profiler`` session."""
+    out = {}
+    for e in prof.key_averages():
+        us = event_device_us(e)
+        if us > 0 and any(n in e.key for n in names):
+            out[e.key[:80]] = dict(launches=e.count, device_us=us, us_per_launch=us / e.count)
+    return out
+
+
+def time_pair_sums(raw_sums):
+    """``moments``' raw entry (``pair_sums``) at each terms shape the
+    realtime step hands it (recorded in the eager checks): held against the
+    float64 sum within 1e-5 of the terms' magnitude, then its device us a
+    call and wrapper ms against ``terms.sum(-2)`` (its plain version, which
+    is also the one library call; its device us from every device event of
+    a profiled session), and its byte bound (the terms read once, the sums
+    written once)."""
+    from open3d_slam_private_tpu_torch.kernels import moments as mk
+
+    rows = {}
+    for shape, rec in raw_sums.items():
+        terms = rec["first"].contiguous()
+        got = mk.pair_sums(terms)
+        ref = terms.double().sum(-2)
+        worst = float(((got.double() - ref).abs() / (1e-5 * (terms.double().abs().sum(-2) + 1e-30))).max())
+        if not worst <= 1.0:
+            raise RuntimeError(f"pair_sums {shape}: {worst:.3g} x tolerance")
+        S = terms.shape[-1]
+        t = timed("moments", lambda x=terms: mk.pair_sums(x), lambda x=terms: x.sum(-2),
+                  terms.numel() * 4 + terms.numel() // terms.shape[-2] * 4, terms.numel(),
+                  library_fn=lambda x=terms: x.sum(-2))
+        rows[shape] = dict(calls_in_eager_checks=rec["calls"], sums=S, worst_over_tolerance=worst,
+                           library_device_us=session_device_us(lambda x=terms: x.sum(-2)), **t)
+    return rows
 
 
 def _counters():
@@ -2114,7 +2280,7 @@ def main():
     kernels = phase_kernels(hs)
     # Each path's launch counts: set to 0 just before it, read just after.
     pipeline_counts, k1_pipeline_us, slam_summary = phase_pipeline(dev)
-    realtime_counts, realtime_in_graph = phase_realtime(dev, slam_summary)
+    realtime_counts, realtime_in_graph, realtime_kernels = phase_realtime(dev, slam_summary)
     # The smoke's drive takes each scan at one instant (``sample_scan``), so
     # the evaluation configuration runs with motion compensation off. Its
     # ATE limit is the JAX package's own accuracy in this configuration on
@@ -2149,6 +2315,10 @@ def main():
             k["device_us_per_launch_in_pipeline"] = k1_pipeline_us
         if k["name"] in realtime_in_graph:  # from the graphs' profiled replays
             k["launches_per_step_replay"] = realtime_in_graph[k["name"]]
+            k["in_step_replay"] = {key: v for key, v in realtime_kernels["step_replay_kernels"].items()
+                                   if REALTIME_COUNTED[k["name"]].split("_partial")[0] in key}
+        if k["name"] == "moments":
+            k["at_realtime_pair_sums"] = realtime_kernels["pair_sums"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2158,7 +2328,9 @@ def main():
 if __name__ == "__main__":
     import sys
 
-    if sys.argv[1:2] == ["--side"]:
+    if sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--sym-eig"]:
+        sym_eig_side(sys.argv[2])
+    elif sys.argv[1:2] == ["--side"]:
         compare_side(sys.argv[2])
     else:
         main()

@@ -8,10 +8,11 @@ and ``icp.py``'s spectral diagnostics). On the card
 ``torch.linalg.eigh`` reads its ``info`` back on the host, so a step that
 calls it cannot be captured, and cuSOLVER's batched solver picks its method
 from the whole batch. The CUDA kernel (``csrc/sym_eig.cu``) runs cyclic
-Jacobi in round-robin order, one warp a matrix, until a sweep rotates
-nothing: no host read, no allocation, and an order of operations fixed by
+Jacobi in round-robin order, one warp a matrix with A and V in registers
+and n a template parameter, until a test of every pair finds nothing left
+to rotate: no host read, no allocation, and an order of operations fixed by
 the matrix alone. It is a latency chain (see the source note for its bytes
-and operations).
+and operations); :func:`chain_probe` times one step's chain on the card.
 
 :func:`sym_eig_plain` is ``torch.linalg.eigh`` one matrix a call (so a
 matrix's bits do not depend on its batch there either). :func:`sym_eig`
@@ -33,6 +34,8 @@ MAX_SWEEPS = 30  # kMaxSweeps
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sym_eig_launch(A, w, V, sweeps, B, n, is_double, stream)
 _LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _P]
+# sym_eig_probe_launch(is_double, mode, iters, out, stream)
+_PROBE_ARGTYPES = [_I, _I, _I, _P, _P]
 
 
 def sym_eig_plain(A: torch.Tensor):
@@ -85,3 +88,30 @@ def sym_eig(A: torch.Tensor, sweeps: bool = False):
 
 
 sym_eig.launches = 0
+
+
+def chain_probe(device, dtype=torch.float64, iters: int = 20000):
+    """The kernel's floor, timed on the card by ``sym_eig_chain_probe``
+    (one warp): ``iters`` rotation steps' dependent chains alone (the
+    block's shuffle, the rotation, the broadcast of (c, s), the update's
+    FMAs), then ``iters`` stop tests' (a diagonal's shuffle, the test, the
+    vote). Returns ``{"step": {...}, "test": {...}}``, each with cycles
+    (``clock64``) and ns (the global timer) per iteration. Not a launch of
+    the path: ``sym_eig.launches`` does not count it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"chain_probe: needs a CUDA device, got {device}")
+    lib = _build.load("sym_eig", _LAUNCH_ARGTYPES)
+    fn = lib.sym_eig_probe_launch
+    fn.argtypes, fn.restype = _PROBE_ARGTYPES, ctypes.c_int
+    out = {}
+    with torch.cuda.device(device):
+        for mode, name in ((0, "step"), (1, "test")):
+            buf = torch.zeros(3, dtype=torch.int64, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for _ in range(2):  # the first launch warms the module up
+                rc = fn(int(dtype == torch.float64), mode, iters, buf.data_ptr(), stream)
+                _build.check_launch(lib, "sym_eig", rc)
+            cycles, ns, _ = buf.tolist()
+            out[name] = dict(cycles=cycles / iters, ns=ns / iters, iters=iters)
+    return out
