@@ -20,7 +20,11 @@ normal equations in an order fixed by a problem's size) is held against the
 float64 einsum and to giving a problem the same bits alone as in its batch;
 moments (the cached rounds' moment sums, point-to-plane and GICP, and the
 raw pair sums of the X-ICP analysis) likewise, a problem alone against the
-same problem in a batch of 64; sym_eig (the Jacobi eigensolver of the X-ICP
+same problem in a batch of 64, and its raw entry at every shape the paths
+launch (recorded on the realtime, evaluation and batch-independence paths)
+bit-equal to its numpy model (``tests/moments_model.py``), timed against
+each group's ``t.sum(-2)`` and the launch floor (an empty kernel alone and
+inside a captured graph); sym_eig (the Jacobi eigensolver of the X-ICP
 solves, which a CUDA graph can hold) on every shape the chain hands it (the
 headline's KKT matrices at 1 and 8 x 12 x 12 float64, the diagnostics' 6 x 6
 float32, the ternary analysis's 3 x 3 blocks) against ``torch.linalg.eigh``,
@@ -34,8 +38,7 @@ drive of 28.5 m that crosses the 20 m submap creation radius; the
 captured CUDA graph a scan, paced and throughput, its first scans held bit
 for bit to the eager ``rt_step``, its kernels counted inside the graph from
 profiler device events, and each kernel's device time inside a profiled
-step replay; the moments kernel's raw pair sums timed at the shapes the step
-hands them), and the ``SlamPipeline`` again in
+step replay), and the ``SlamPipeline`` again in
 the evaluation protocol's configuration (``tools/run_eval.py``: the
 mapper's direct in-round path, exact trimming, with X-ICP's ternary
 method); the ``Mapper``
@@ -69,7 +72,11 @@ runs the phases that compare two checkouts, from the checkout at ``DIR``
     python3 chip_smoke.py --side DIR --sym-eig
 
 times that checkout's sym_eig on the matrices the last full run saved
-(:func:`sym_eig_side`).
+(:func:`sym_eig_side`), and
+
+    python3 chip_smoke.py --side DIR --moments
+
+its moments on the inputs the last full run saved (:func:`moments_side`).
 """
 
 from __future__ import annotations
@@ -77,7 +84,9 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import subprocess
+import sys
 import time
 import warnings
 
@@ -101,6 +110,8 @@ KERNEL_MODULES = {  # library name -> wrapper module
 }
 _GROUPED = ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
             "gather_select_scatter", "gather_select_rank")
+# The launch floor's empty kernel, a measurement aid on no path of the port.
+LAUNCH_FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "launch_floor.cu")
 DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
     "pair_gn": ("pair_gn_fused",),
     "gather_select": _GROUPED,
@@ -109,7 +120,7 @@ DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
     "rank_select_table": _GROUPED,
     "knn_brute": ("knn_brute_pack", "knn_brute_kernel", "knn_brute_merge"),
     "normal_eq": ("normal_eq_partial", "normal_eq_final"),
-    "moments": ("moments_partial", "moments_final"),
+    "moments": ("moments_raw", "moments_partial", "moments_final"),
     "sym_eig": ("sym_eig_kernel",),
 }
 # Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
@@ -247,8 +258,10 @@ def phase_build():
     from open3d_slam_private_tpu_torch.kernels import _build
 
     t = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_MODULES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_MODULES) + 1) as pool:
+        floor = pool.submit(_build.build, "launch_floor", LAUNCH_FLOOR_SRC)
         libs = dict(zip(KERNEL_MODULES, pool.map(_build.build, KERNEL_MODULES)))
+        libs["launch_floor"] = floor.result()
     for name, module in KERNEL_MODULES.items():
         mod = importlib.import_module(f"open3d_slam_private_tpu_torch.kernels.{module}")
         argtypes = mod._LAUNCH_K_ARGTYPES if name == "pair_gn_k" else mod._LAUNCH_ARGTYPES
@@ -662,7 +675,8 @@ def _check_rank_select(grid, h, q, m):
 
 def session_device_us(fn, reps=10):
     """Device microseconds per call of ``fn``: every device-side event of
-    a ``torch.profiler`` session of ``reps`` calls."""
+    a ``torch.profiler`` session of ``reps`` calls (None if the trace holds
+    none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -671,7 +685,8 @@ def session_device_us(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return profiled_device_ms(prof)[0] * 1e3 / reps
+    ms = profiled_device_ms(prof)[0]
+    return None if ms is None else ms * 1e3 / reps
 
 
 def _check_rank_select_table(grid, h, q, m):
@@ -866,6 +881,7 @@ def _check_moments(hs, T, src0):
     q, n = res.xyz[:, :, 0].contiguous(), res.normals[:, :, 0].contiguous()
     ns = se3.apply_rotation(T, gicp_readings(hs).normals).contiguous()
     eps = cfg.gicp_epsilon
+    hs["moments_structured"] = dict(p0=p0, q=q, n=n, ns=ns, w=w, epsilon=eps)
     same = lambda x, y: torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
     out = {}
     for kind in ("point_to_plane", "gicp"):
@@ -1074,7 +1090,6 @@ def _check_sym_eig(hs):
     the kernel's probe (``kernels.sym_eig.chain_probe``, both types). The
     inputs are saved to ``SYM_EIG_INPUTS`` for ``--side DIR --sym-eig``,
     which times another checkout's kernel on them."""
-    import os
 
     from open3d_slam_private_tpu_torch.kernels import sym_eig as sek
 
@@ -1102,8 +1117,6 @@ def sym_eig_side(root):
     :func:`sym_eig_timings` (no chain floor: the probe may not exist there).
     Run it once per side, each in its own process, in one call to the card
     (parent, change, change, parent)."""
-    import os
-    import sys
 
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -1340,12 +1353,13 @@ def drive(n_scans, step):
 
 def profiled_device_ms(prof):
     """Device milliseconds of a ``torch.profiler`` session (the self time of
-    its device-side events: kernels, copies, sets) and its four largest
-    device items as (name, ms, count)."""
+    its device-side events: kernels, copies, sets; None if the trace holds
+    none) and its four largest device items as (name, ms, count)."""
     from torch.autograd import DeviceType
 
-    avgs = prof.key_averages()
-    dev = [e for e in avgs if getattr(e, "device_type", None) == DeviceType.CUDA] or avgs
+    dev = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not dev:
+        return None, []
     top = sorted(dev, key=event_device_us, reverse=True)[:4]
     return (sum(event_device_us(e) for e in dev) / 1e3,
             [(e.key[:60], event_device_us(e) / 1e3, e.count) for e in top])
@@ -1387,7 +1401,8 @@ class StageClock:
                     out = fn(*args, **kwargs)
                     sync(self.dev)
                 ms, self.top[stage] = profiled_device_ms(prof)
-                self.device_ms[stage].append(ms)
+                if ms is not None:
+                    self.device_ms[stage].append(ms)
                 for e in prof.key_averages():
                     if any(k in e.key for k in DEVICE_KERNELS["pair_gn"]):
                         self.k1_device_us += event_device_us(e)
@@ -1448,7 +1463,8 @@ PIPELINE_NEED = {"pipeline": dict(odometry=("pair_gn",), mapping=("pair_gn",)),
                  "pipeline-64k-eval": dict(odometry=("pair_gn",), mapping=("normal_eq", "moments"))}
 
 
-def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.05, 0.15), **note):
+def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.05, 0.15), record=None,
+                   **note):
     """The online SLAM step through ``SlamPipeline.process_scan``: with the
     production configs (loop closure off) unless ``cfg``: LiDAR odometry
     (16,384 points, hash table 2^13 x 48), the mapper (65,536 raw -> 16,384
@@ -1458,8 +1474,11 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     (device time per stage, K1's device time per launch) and are left out of
     the timings. ``cell`` names the printed line and the kernels each stage
     must launch (``PIPELINE_NEED``); ``ate_limits`` the ATE p50 and max it
-    must hold. Returns the launch counts, K1's device microseconds per
-    launch at the SLAM step's shapes and the scan's wall and device times."""
+    must hold. With ``record`` (a dict), one more scan after the checks,
+    neither timed nor counted, records the raw pair sums' shapes into it
+    (:class:`record_raw_sums`). Returns the launch counts, K1's device
+    microseconds per launch at the SLAM step's shapes and the scan's wall
+    and device times."""
     from open3d_slam_private_tpu_torch.ops import pointcloud as pc
     from open3d_slam_private_tpu_torch.slam.pipeline import SlamConfig, SlamPipeline
 
@@ -1496,16 +1515,17 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     ate = np.array([np.linalg.norm(e[:3, 3] - t[:3, 3]) for e, t in zip(est, truth)])[1:]
     p50, amax = float(np.median(ate)), float(ate.max())
     walls = {s: [m[s] for m in stage_ms] for s in StageClock.STAGES}
-    dev_ms = {s: float(np.mean(v)) if v else 0.0 for s, v in clock.device_ms.items()}
-    dev_ms["mapping"] -= dev_ms["insertion"]
+    dev_ms = {s: float(np.mean(v)) if v else None for s, v in clock.device_ms.items()}
+    if dev_ms["mapping"] is not None and dev_ms["insertion"] is not None:
+        dev_ms["mapping"] -= dev_ms["insertion"]
     profile_out = {}
     for s in StageClock.STAGES:
         wall = float(np.median(walls[s]))
         profile_out[s] = dict(wall_ms_p50=wall, device_ms=dev_ms[s], sessions=len(clock.device_ms[s]),
-                              idle_share=1.0 - dev_ms[s] / wall if wall > 0 else None,
+                              idle_share=1.0 - dev_ms[s] / wall if wall > 0 and dev_ms[s] is not None else None,
                               top_device_items=clock.top.get(s))
     scan_wall = float(np.median(total_ms))
-    scan_dev = sum(dev_ms.values())
+    scan_dev = None if None in dev_ms.values() else sum(dev_ms.values())
     k1_us = clock.k1_device_us / clock.k1_profiled if clock.k1_profiled else None
     summary = dict(scan_ms_p50=scan_wall, scan_ms_p90=float(np.percentile(total_ms, 90)),
                    scan_device_ms=scan_dev, ate_p50_m=p50)
@@ -1518,7 +1538,7 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
         launches_by_stage={k: {n: c for n, c in v.items() if c} for k, v in clock.launches.items()},
         launches=counts,
         profile=dict(scans=PROFILE_SCANS, stages=profile_out, scan_device_ms=scan_dev,
-                     scan_idle_share=1.0 - scan_dev / scan_wall,
+                     scan_idle_share=None if scan_dev is None else 1.0 - scan_dev / scan_wall,
                      pair_gn_profiled_launches=clock.k1_profiled, pair_gn_device_us_per_launch=k1_us))
     if not (p50 <= ate_limits[0] and amax <= ate_limits[1]):
         raise RuntimeError(f"{cell} trajectory error too large: p50 {p50} m, max {amax} m "
@@ -1529,6 +1549,9 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
     for stage, names in PIPELINE_NEED[cell].items():
         if any(clock.launches[stage].get(k, 0) <= 0 for k in names):
             raise RuntimeError(f"{cell}: the {stage} stage missed {names}: {clock.launches}")
+    if record is not None:
+        with record_raw_sums(record):
+            pipe.process_scan(scans[-1], 0.1 * len(scans))
     return counts, k1_us, summary
 
 
@@ -1592,7 +1615,7 @@ class ReplayClock:
 
 
 REALTIME_COUNTED = dict(pair_gn="pair_gn_fused", normal_eq="normal_eq_partial",
-                       moments="moments_partial", sym_eig="sym_eig_kernel")
+                       moments="moments_raw<", sym_eig="sym_eig_kernel")
 # The throughput mode's poll block run under torch.profiler (scans
 # 8 * REALTIME_PROFILED_BLOCK + 1 .. + 8): the device's busy time and idle
 # share come from its trace, and the block is left out of the walls.
@@ -1715,8 +1738,7 @@ def phase_realtime(dev, slam_summary):
             ends.append(time.perf_counter())
             if check:  # the eager step's launches are not the path's
                 held = read_counts()
-                with record_calls(raw_sums, "pair_sums", ("localizability",), lambda x: "x".join(map(str, x.shape))), \
-                        record_sym_eig(eager_sym_eig):
+                with record_raw_sums(raw_sums), record_sym_eig(eager_sym_eig):
                     _, eager_row = rt.rt_step(before, scan, torch.tensor(0.1, device=dev),
                                               torch.eye(4, device=dev), pipe.cfg, rebuild_branch=False)
                 bits.append(bool(np.array_equal(eager_row.cpu().numpy(), pipe.frames[k].stats)))
@@ -1797,7 +1819,7 @@ def phase_realtime(dev, slam_summary):
         fn.launches = held[name]
     eager_ms, eager_top = profiled_device_ms(prof)
     masked = dict(graph_event_ms=graph_ms, eager_kernel_ms=eager_ms,
-                  masked_iterations_ms=replay_dev_ms - eager_ms,
+                  masked_iterations_ms=None if None in (replay_dev_ms, eager_ms) else replay_dev_ms - eager_ms,
                   profiled_replay_device_ms=replay_dev_ms, eager_top_device_items=eager_top,
                   iterations_this_scan=float(g.stats[0, rt.IDX_ITERATIONS]))
     out = {m: r for m, (r, _) in modes.items()}
@@ -1809,8 +1831,6 @@ def phase_realtime(dev, slam_summary):
         sym_eig_device_ms_per_scan=sym_eig_us / 1e3 * step_replays_per_scan,
         step_replays_per_scan=step_replays_per_scan,
         eager_sym_eig_calls={f"{k[0]} {k[1]}": v["calls"] for k, v in eager_sym_eig.items()})
-    pair_sums_rows = time_pair_sums(raw_sums)
-    say("realtime_pair_sums", cell="realtime-64k", shapes=pair_sums_rows)
     say("realtime", cell="realtime-64k", ate_limits_m=list(REALTIME_ATE_LIMITS), raw_points=SCAN_POINTS,
         distance_m=PIPELINE_STEP_M * (len(scans) - 1),
         depth=f"{PIPELINE_SCANS} scans, not cut", modes=out, launches_per_replay=per_replay,
@@ -1828,7 +1848,7 @@ def phase_realtime(dev, slam_summary):
     missing = [k for k, c in in_graph.items() if c <= 0]
     if missing:
         raise RuntimeError(f"realtime-64k: {missing} did not launch inside the step graph: {in_graph}")
-    return counts, in_graph, dict(step_replay_kernels=step_kernels, pair_sums=pair_sums_rows)
+    return counts, in_graph, dict(step_replay_kernels=step_kernels, raw_sums=raw_sums)
 
 
 def kernels_by_key(prof, names):
@@ -1842,31 +1862,257 @@ def kernels_by_key(prof, names):
     return out
 
 
-def time_pair_sums(raw_sums):
-    """``moments``' raw entry (``pair_sums``) at each terms shape the
-    realtime step hands it (recorded in the eager checks): held against the
-    float64 sum within 1e-5 of the terms' magnitude, then its device us a
-    call and wrapper ms against ``terms.sum(-2)`` (its plain version, which
-    is also the one library call; its device us from every device event of
-    a profiled session), and its byte bound (the terms read once, the sums
-    written once)."""
+def _tests_module(name):
+    """``tests/<name>.py`` of this checkout, loaded by its path (a ``tests``
+    package elsewhere on the path may shadow the directory)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class record_raw_sums:
+    """Within it, ``pair_sums`` and ``pair_sums_groups`` as the models call
+    them (``localizability``, ``icp``) record into ``seen``, for each tuple
+    of their terms' shapes (``"1x16384x3+1x16384x3"``), the first call's
+    terms (copies) and the calls."""
+
+    MODULES = ("localizability", "icp")
+
+    def __init__(self, seen):
+        import importlib
+
+        self.seen = seen
+        self.mods = [importlib.import_module(f"open3d_slam_private_tpu_torch.models.{m}") for m in self.MODULES]
+        self.saved = []
+
+    def _wrap(self, fn):
+        def record(*terms):
+            k = "+".join("x".join(map(str, t.shape)) for t in terms)
+            if k not in self.seen:
+                self.seen[k] = dict(first=[t.detach().clone() for t in terms], calls=0)
+            self.seen[k]["calls"] += 1
+            return fn(*terms)
+        return record
+
+    def __enter__(self):
+        for m in self.mods:
+            for name in ("pair_sums", "pair_sums_groups"):
+                if hasattr(m, name):
+                    self.saved.append((m, name, getattr(m, name)))
+                    setattr(m, name, self._wrap(getattr(m, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def graph_us(fn, calls=20):
+    """Microseconds a call of ``fn`` inside a captured CUDA graph of
+    ``calls`` calls: CUDA events around its replays over ``calls`` (a call's
+    share of the graph's time, the gaps between its nodes included), as the
+    realtime step runs it."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    us = cuda_ms(graph.replay, reps=10) * 1e3 / calls
+    del graph
+    return us
+
+
+def launch_floor(dev, nodes=100):
+    """The launch floor: the device microseconds of an empty kernel (one
+    block of 32 threads, ``LAUNCH_FLOOR_SRC``) launched alone
+    (``torch.profiler`` device events), and inside a captured CUDA graph of
+    ``nodes`` of them (the profiler's per-kernel device time, and
+    :func:`graph_us`: a node's share of a graph's time)."""
+    import ctypes
+
+    from open3d_slam_private_tpu_torch.kernels import _build
+
+    lib = _build.load("launch_floor", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], src=LAUNCH_FLOOR_SRC)
+
+    def empty(count):
+        rc = lib.launch_floor_launch(count, 1, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch(lib, "launch_floor", rc)
+
+    eager_us, _ = device_us_per_call(lambda: empty(1), ("launch_floor_empty",), reps=50)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        empty(1)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        empty(nodes)
+    graph_kernel_us, _ = device_us_per_call(graph.replay, ("launch_floor_empty",), reps=5)
+    floor = dict(us=eager_us, in_graph_kernel_us=graph_kernel_us / nodes if graph_kernel_us else None,
+                 in_graph_node_us=graph_us(lambda: empty(1), calls=nodes), graph_nodes=nodes)
+    say("launch_floor", name="launch_floor_empty", source="tools/launch_floor.cu", **floor)
+    return floor
+
+
+def raw_sums_timings(raw_sums, floor, steps=None, keys=None):
+    """``moments``' raw entry at each terms shape recorded (``record_raw_sums``;
+    ``keys``: those only): held bit for bit to its numpy model
+    (``tests/moments_model.py``), to a rerun and to each problem's bits
+    inside a batch of 64, and within 1e-5 of the terms' magnitude of the
+    float64 sum, then timed against each group's ``t.sum(-2)`` (its
+    plain version, one call a group, which is also the library call): us a
+    call inside a captured graph (:func:`graph_us`, as the realtime step
+    runs it) and wrapper ms, with its byte bound (the terms read once, the
+    sums written once) and the launch floor's share (``floor``,
+    :func:`launch_floor`, in a graph against in a graph). The device us of
+    both come from a fresh process (:func:`fresh_device_us`). With
+    ``steps``, the calls a step (recorded calls over ``steps``)."""
     from open3d_slam_private_tpu_torch.kernels import moments as mk
 
+    raw_model = _tests_module("moments_model").raw_model
+    bits = lambda x, y: torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))  # noqa: E731
     rows = {}
     for shape, rec in raw_sums.items():
-        terms = rec["first"].contiguous()
-        got = mk.pair_sums(terms)
-        ref = terms.double().sum(-2)
-        worst = float(((got.double() - ref).abs() / (1e-5 * (terms.double().abs().sum(-2) + 1e-30))).max())
-        if not worst <= 1.0:
-            raise RuntimeError(f"pair_sums {shape}: {worst:.3g} x tolerance")
-        S = terms.shape[-1]
-        t = timed("moments", lambda x=terms: mk.pair_sums(x), lambda x=terms: x.sum(-2),
-                  terms.numel() * 4 + terms.numel() // terms.shape[-2] * 4, terms.numel(),
-                  library_fn=lambda x=terms: x.sum(-2))
-        rows[shape] = dict(calls_in_eager_checks=rec["calls"], sums=S, worst_over_tolerance=worst,
-                           library_device_us=session_device_us(lambda x=terms: x.sum(-2)), **t)
+        if keys is not None and shape not in keys:
+            continue
+        terms = [t.contiguous() for t in rec["first"]]
+        flats = [t.reshape((-1,) + t.shape[-2:]) for t in terms]
+        got = [g.reshape(f.shape[0], -1) for g, f in zip(mk.pair_sums_groups(*terms), flats)]
+        worst = max(float(((g.double() - f.double().sum(-2)).abs() / (1e-5 * (f.double().abs().sum(-2) + 1e-30))).max())
+                    for g, f in zip(got, flats))
+        model_bits = all(bits(g, torch.from_numpy(raw_model(f.cpu().numpy())).to(g.device)) for g, f in zip(got, flats))
+        rerun = all(bits(g, a.reshape(g.shape)) for g, a in zip(got, mk.pair_sums_groups(*terms)))
+        # Each problem inside a batch of 64 (the problems repeated).
+        reps = -(-64 // flats[0].shape[0])
+        in64 = mk.pair_sums_groups(*(f.repeat(reps, 1, 1)[:64].contiguous() for f in flats))
+        alone = all(bits(g, b64[:g.shape[0]]) for g, b64 in zip(got, in64))
+        if not (worst <= 1.0 and model_bits and rerun and alone):
+            raise RuntimeError(f"pair_sums {shape}: {worst:.3g} x tolerance, model bits {model_bits}, rerun "
+                               f"{rerun}, in a batch of 64 {alone}")
+        numel = sum(t.numel() for t in terms)
+        out_numel = sum(t.numel() // t.shape[-2] for t in terms)
+        plain = lambda x=terms: [t.sum(-2) for t in x]  # noqa: E731
+        t = timed("moments", lambda x=terms: mk.pair_sums_groups(*x), plain, numel * 4 + out_numel * 4, numel,
+                  library_fn=plain)
+        P = terms[0].shape[-2]
+        in_graph = graph_us(lambda x=terms: mk.pair_sums_groups(*x))
+        rows[shape] = dict(columns=[x.shape[-1] for x in terms], plan=list(mk.raw_plan(P)),
+                           calls_recorded=rec["calls"], worst_over_tolerance=worst, model_bit_equal=model_bits,
+                           bit_identical_rerun=rerun, batch_independent_in_64=alone,
+                           graph_us=in_graph,
+                           library_graph_us=graph_us(plain), launch_floor_in_graph_us=floor["in_graph_node_us"],
+                           launch_floor_share=floor["in_graph_node_us"] / in_graph,
+                           bound_share_in_graph=t["bound_ms"] * 1e3 / in_graph, **t)
+        if steps:
+            rows[shape]["calls_per_step"] = rec["calls"] / steps
     return rows
+
+
+MOMENTS_INPUTS = "build/moments_inputs.pt"  # the raw and structured inputs, for --side DIR --moments
+
+
+def moments_timings(dev, sources, structured):
+    """The raw entry at the shapes the paths in ``sources`` ({path:
+    (recorded raw sums, keys to time or None, steps or None)}) launched, by
+    :func:`raw_sums_timings`; saves their inputs and the structured
+    entries' (``structured``, from ``_check_moments``) to
+    ``MOMENTS_INPUTS`` for ``--side DIR --moments``."""
+
+    raw, rows = {}, {}
+    floor = launch_floor(dev)
+    for path, (seen, keys, steps) in sources.items():
+        for shape, rec in seen.items():
+            if keys is None or shape in keys:
+                raw[shape] = [t.cpu() for t in rec["first"]]
+        rows[path] = raw_sums_timings(seen, floor, steps=steps, keys=keys)
+    os.makedirs(os.path.dirname(MOMENTS_INPUTS), exist_ok=True)
+    torch.save(dict(raw=raw, structured={k: v.cpu() if torch.is_tensor(v) else v
+                                         for k, v in structured.items()}), MOMENTS_INPUTS)
+    fresh = fresh_device_us()
+    for path, shapes in rows.items():
+        for shape, row in shapes.items():
+            got = fresh[shape]
+            row.update(device_us=got["device_us"], device_us_by_kernel=got["device_us_by_kernel"],
+                       library_device_us=got["library_device_us"], device_us_from="fresh process",
+                       bound_share=row["bound_ms"] * 1e3 / got["device_us"] if got["device_us"] else None)
+        say("moments_raw_sums", path=path, shapes=shapes)
+    return dict(launch_floor=floor, **rows)
+
+
+def fresh_device_us():
+    """The raw entry's and its library call's device us a call at each
+    shape saved in ``MOMENTS_INPUTS``, from ``chip_smoke.py --side <this
+    checkout> --moments`` run as a child process. The profiler of the
+    smoke's own process, after the realtime phase, recorded no device
+    event for these calls (cause not found); a fresh process records them.
+    A shape recorded on two paths is timed on the last path's terms."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--side", root, "--moments"],
+                          capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"phase": "moments_side"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"moments side process failed (rc {proc.returncode}):\n{proc.stdout[-2000:]}"
+                           f"\n{proc.stderr[-4000:]}")
+    return lines[0]["shapes"]
+
+
+def most_called(seen):
+    """Of recorded raw sums, the most-called shape of each signature (the
+    groups' column counts)."""
+    best = {}
+    for shape, rec in seen.items():
+        sig = "+".join(str(t.shape[-1]) for t in rec["first"])
+        if sig not in best or rec["calls"] > seen[best[sig]]["calls"]:
+            best[sig] = shape
+    return set(best.values())
+
+
+def moments_side(root):
+    """``--side DIR --moments``: the checkout at ``DIR``'s ``moments`` on the
+    main run's saved inputs (``MOMENTS_INPUTS``): device us a call (the
+    ``moments`` ``__global__`` functions in a profiled session) and wrapper
+    ms, each raw shape also inside a captured graph (:func:`graph_us`),
+    through ``pair_sums_groups`` where the checkout has it, else
+    ``pair_sums`` a group (its path's calls for the same sums), with each
+    group's ``t.sum(-2)``'s device us beside it; and the structured entries
+    at 8 x 65,536. The main run calls it on its own checkout
+    (:func:`fresh_device_us`); to compare, run it once per side, each in
+    its own process, in one call to the card (parent, change, change,
+    parent)."""
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import open3d_slam_private_tpu_torch
+    from open3d_slam_private_tpu_torch.kernels import moments as mk
+
+    phase_device()
+    saved = torch.load(MOMENTS_INPUTS)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for shape, terms in saved["raw"].items():
+        terms = [t.to(dev) for t in terms]
+        if hasattr(mk, "pair_sums_groups"):
+            fn = lambda x=terms: mk.pair_sums_groups(*x)  # noqa: E731
+        else:
+            fn = lambda x=terms: [mk.pair_sums(t) for t in x]  # noqa: E731
+        us, per = device_us_per_call(fn, DEVICE_KERNELS["moments"])
+        out[shape] = dict(device_us=us, device_us_by_kernel=per, graph_us=graph_us(fn), ms=cuda_ms(fn),
+                          library_device_us=session_device_us(lambda x=terms: [t.sum(-2) for t in x]))
+    st = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in saved["structured"].items()}
+    for kind, fn in (("point_to_plane", lambda: mk.point_to_plane_moments(st["p0"], st["q"], st["n"], st["w"])),
+                     ("gicp", lambda: mk.gicp_moments(st["p0"], st["ns"], st["q"], st["n"], st["w"],
+                                                      epsilon=st["epsilon"]))):
+        us, per = device_us_per_call(fn, DEVICE_KERNELS["moments"])
+        out[kind] = dict(device_us=us, device_us_by_kernel=per, ms=cuda_ms(fn))
+    say("moments_side", root=root, package=os.path.dirname(open3d_slam_private_tpu_torch.__file__), shapes=out)
 
 
 def _counters():
@@ -2002,7 +2248,7 @@ def phase_gicp(hs):
     sec = float(np.median(times))
     say("gicp", cell="gicp-b8", batch=BATCH, points=SCAN_POINTS, reg_per_s=BATCH / sec, batch_ms=sec * 1e3,
         batch_ms_runs=[t * 1e3 for t in times], profiled_wall_ms=wall * 1e3, device_ms=device_ms,
-        idle_share=1.0 - device_ms / (wall * 1e3), top_device_items=top,
+        idle_share=None if device_ms is None else 1.0 - device_ms / (wall * 1e3), top_device_items=top,
         mean_iterations=float(res.iterations.float().mean()), max_trans_err_m=max(terr),
         max_rot_err_rad=max(rerr), moments_launches=counts["moments"], launches=counts)
     if not (np.isfinite(terr).all() and max(terr) <= 0.02 and max(rerr) <= 0.01):
@@ -2221,8 +2467,6 @@ def compare_side(root):
         python3 chip_smoke.py --side build/parent; python3 chip_smoke.py --side .
     """
     import importlib.util
-    import os
-    import sys
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2286,9 +2530,11 @@ def main():
     # ATE limit is the JAX package's own accuracy in this configuration on
     # this drive (tests/torch_eval_drive.py, on the CPU: p50 0.0639 m, max
     # 0.1242 m), above the production configuration's 0.05 m.
+    eval_raw, independence_raw = {}, {}
     eval_counts, _, _ = phase_pipeline(
         dev, eval_slam_config(motion_compensation=False), cell="pipeline-64k-eval", min_submaps=1,
-        ate_limits=(0.08, 0.15), motion_compensation="off: the drive's scans are each taken at one instant",
+        ate_limits=(0.08, 0.15), record=eval_raw,
+        motion_compensation="off: the drive's scans are each taken at one instant",
         depth=f"{PIPELINE_SCANS} scans, not cut")
     paths = dict(pipeline=pipeline_counts, realtime=realtime_counts, pipeline_eval=eval_counts,
                  mapper=phase_mapper(dev))
@@ -2296,7 +2542,12 @@ def main():
     paths["gicp_b8"] = phase_gicp(hs)
     paths.update({f"register_pair_{m}": c for m, c in phase_register_pair(hs).items()})
     paths.update({f"hypotheses_{m}": c for m, c in phase_hypotheses(hs).items()})
-    phase_batch_independence(hs)
+    with record_raw_sums(independence_raw):
+        phase_batch_independence(hs)
+    raw_rows = moments_timings(dev, dict(
+        realtime=(realtime_kernels["raw_sums"], None, REALTIME_CHECK_SCANS),
+        pipeline_eval=(eval_raw, most_called(eval_raw), None),
+        batch_independence=(independence_raw, most_called(independence_raw), None)), hs["moments_structured"])
     # K4's rows entry carries the Pallas kernel's contract and lies on no
     # path: the select leg reads the rows in place (K4's table entry). Its
     # launches are those of every path, 0 (the select leg checks it).
@@ -2318,7 +2569,7 @@ def main():
             k["in_step_replay"] = {key: v for key, v in realtime_kernels["step_replay_kernels"].items()
                                    if REALTIME_COUNTED[k["name"]].split("_partial")[0] in key}
         if k["name"] == "moments":
-            k["at_realtime_pair_sums"] = realtime_kernels["pair_sums"]
+            k["at_raw_shapes"] = raw_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2326,10 +2577,11 @@ def main():
 
 
 if __name__ == "__main__":
-    import sys
 
     if sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--sym-eig"]:
         sym_eig_side(sys.argv[2])
+    elif sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--moments"]:
+        moments_side(sys.argv[2])
     elif sys.argv[1:2] == ["--side"]:
         compare_side(sys.argv[2])
     else:

@@ -49,9 +49,10 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if not already built) -> library path."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, src=None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or the source ``src``) if not already
+    built -> library path."""
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -71,13 +72,14 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, launch_argtypes) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+def load(name: str, launch_argtypes, src=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or of ``src``), built on
+    first use, with
     ``<name>_launch(*launch_argtypes) -> int`` and
     ``<name>_error_string(int) -> char*`` typed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name, src)))
         launch = getattr(lib, f"{name}_launch")
         launch.argtypes = launch_argtypes
         launch.restype = ctypes.c_int

@@ -16,8 +16,10 @@ a leading problem axis:
   constraint value) or not localizable.
 
 Constrained directions become border rows of a 12x12 KKT system. The sums
-over pairs go through ``kernels.moments.pair_sums`` (on the card, in an
-order fixed by a problem's own size).
+over pairs go through ``kernels.moments.pair_sums`` and
+``pair_sums_groups`` (on the card, in an order fixed by a problem's own
+size; one launch for the alignment centre, one for both subspaces'
+contribution sums and one for both ternary re-solves).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import dataclasses
 
 import torch
 
-from open3d_slam_private_tpu_torch.kernels.moments import pair_sums
+from open3d_slam_private_tpu_torch.kernels.moments import pair_sums, pair_sums_groups
 from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
 from open3d_slam_private_tpu_torch.models.minimizers import (
     esum,
@@ -112,19 +114,23 @@ def solve_with_solution_remapping(A, b, cfg: DegeneracyConfig):
     return esum("ij,j->i", P, x), dataclasses.replace(base, eigenvalues6=w, condition_number=cond)
 
 
-def _subspace_contributions(align_vecs, eigvecs, point_mask, cfg: DegeneracyConfig,
-                            strict_weak: bool = False):
-    """Contribution sums of each pair against the 3 eigenvector columns:
-    (combined [..., 3], high [..., 3], weak [..., P, 3], strong [..., P, 3]).
+def _subspace_contributions(subspaces, point_mask, cfg: DegeneracyConfig, strict_weak: bool = False):
+    """Contribution sums of each pair against the 3 eigenvector columns of
+    each ``(align_vecs [..., P, 3], eigvecs [..., 3, 3])`` of ``subspaces``:
+    for each, (combined [..., 3], high [..., 3], weak [..., P, 3], strong
+    [..., P, 3]); every subspace's sums in one ``pair_sums_groups`` call.
     ``strict_weak``: the Optimized method gates the combined sum with a
     strict ``> weak cos`` where the ternary counter uses ``>=``."""
-    a = esum("pi,ik->pk", align_vecs, eigvecs).abs()
-    a = torch.where(point_mask[..., None], a, 0.0)
-    strong = a > cfg.strong_alignment_cos
-    weak = a > cfg.weak_alignment_cos if strict_weak else a >= cfg.weak_alignment_cos
-    high = pair_sums(torch.where(strong, a, 0.0))
-    combined = pair_sums(torch.where(weak, a, 0.0))
-    return combined, high, weak, strong
+    terms, gates = [], []
+    for align_vecs, eigvecs in subspaces:
+        a = esum("pi,ik->pk", align_vecs, eigvecs).abs()
+        a = torch.where(point_mask[..., None], a, 0.0)
+        strong = a > cfg.strong_alignment_cos
+        weak = a > cfg.weak_alignment_cos if strict_weak else a >= cfg.weak_alignment_cos
+        terms += [torch.where(strong, a, 0.0), torch.where(weak, a, 0.0)]
+        gates.append((weak, strong))
+    sums = pair_sums_groups(*terms)
+    return [(sums[2 * i + 1], sums[2 * i], weak, strong) for i, (weak, strong) in enumerate(gates)]
 
 
 def _alignment_geometry(A, src_xyz, matched_normals, pair_mask):
@@ -146,9 +152,8 @@ def analyze_optimized(A, b, src_xyz, matched_normals, pair_mask, cfg: Degeneracy
     ``A [..., 6, 6]``, pairs ``src_xyz / matched_normals [..., P, 3]`` and
     ``pair_mask [..., P]``."""
     rot_V, tr_V, crosses = _alignment_geometry(A, src_xyz, matched_normals, pair_mask)
-    comb_r, high_r, _, _ = _subspace_contributions(crosses, rot_V, pair_mask, cfg, strict_weak=True)
-    comb_t, high_t, _, _ = _subspace_contributions(matched_normals, tr_V, pair_mask, cfg,
-                                                   strict_weak=True)
+    (comb_r, high_r, _, _), (comb_t, high_t, _, _) = _subspace_contributions(
+        ((crosses, rot_V), (matched_normals, tr_V)), pair_mask, cfg, strict_weak=True)
 
     def localizable(comb, high):
         return (comb >= cfg.enough_information_threshold) | (
@@ -165,15 +170,20 @@ def analyze_optimized(A, b, src_xyz, matched_normals, pair_mask, cfg: Degeneracy
     )
 
 
-def _partial_constraint_values(sel_w, normals, crosses, deltas_dot_n, eigvecs, is_rotation: bool):
-    """The 3-DoF re-solve on each direction's selected pairs, projected on
-    that direction: ``sel_w [..., P, 3]`` (0/1 per direction) -> ``[..., 3]``."""
-    basis = crosses if is_rotation else normals
+def _constraint_terms(sel_w, basis, deltas_dot_n):
+    """The per-pair terms of the 3-DoF re-solve on each direction's selected
+    pairs: ``sel_w [..., P, 3]`` (0/1 per direction) -> ``[..., P, 36]``
+    (per direction, the 9 entries of its A and the 3 of its b)."""
     sb = sel_w[..., :, :, None] * basis[..., :, None, :]  # [..., P, dir, i]
     a3 = sb[..., :, None] * basis[..., None, None, :]  # [..., P, dir, i, j]
     b3 = -(sb * deltas_dot_n[..., None, None])
     lead = sel_w.shape[:-1]
-    sums = pair_sums(torch.cat([a3.reshape(lead + (3, 9)), b3], -1).reshape(lead + (36,)))
+    return torch.cat([a3.reshape(lead + (3, 9)), b3], -1).reshape(lead + (36,))
+
+
+def _constraint_values(sums, eigvecs):
+    """The re-solves of :func:`_constraint_terms`' sums ``[..., 36]``,
+    projected on each direction -> ``[..., 3]``."""
     sums = sums.reshape(sums.shape[:-1] + (3, 12))
     A3 = sums[..., :9].reshape(sums.shape[:-1] + (3, 3))
     x3 = solve_normal_equations(A3, sums[..., 9:])  # [..., dir, 3]
@@ -191,8 +201,8 @@ def analyze_equality_constraints(A, b, src_xyz, matched_normals, deltas_dot_n, p
     insufficient``: the strongly contributing pairs re-solve), else locked
     at 0."""
     rot_V, tr_V, crosses = _alignment_geometry(A, src_xyz, matched_normals, pair_mask)
-    comb_r, high_r, weak_r, strong_r = _subspace_contributions(crosses, rot_V, pair_mask, cfg)
-    comb_t, high_t, weak_t, strong_t = _subspace_contributions(matched_normals, tr_V, pair_mask, cfg)
+    (comb_r, high_r, weak_r, strong_r), (comb_t, high_t, weak_t, strong_t) = _subspace_contributions(
+        ((crosses, rot_V), (matched_normals, tr_V)), pair_mask, cfg)
 
     def categorize(comb, high):
         loc = (comb >= cfg.high_information_threshold) | (high >= cfg.enough_information_threshold)
@@ -207,10 +217,10 @@ def analyze_equality_constraints(A, b, src_xyz, matched_normals, deltas_dot_n, p
 
     loc_r, mix_r, hi_r = categorize(comb_r, high_r)
     loc_t, mix_t, hi_t = categorize(comb_t, high_t)
-    cons_r = _partial_constraint_values(selection(mix_r, hi_r, weak_r, strong_r), matched_normals,
-                                        crosses, deltas_dot_n, rot_V, True)
-    cons_t = _partial_constraint_values(selection(mix_t, hi_t, weak_t, strong_t), matched_normals,
-                                        crosses, deltas_dot_n, tr_V, False)
+    sums_r, sums_t = pair_sums_groups(
+        _constraint_terms(selection(mix_r, hi_r, weak_r, strong_r), crosses, deltas_dot_n),
+        _constraint_terms(selection(mix_t, hi_t, weak_t, strong_t), matched_normals, deltas_dot_n))
+    cons_r, cons_t = _constraint_values(sums_r, rot_V), _constraint_values(sums_t, tr_V)
     base = _identity_result(A.shape[:-2], A.device, A.dtype)
     return dataclasses.replace(
         base,

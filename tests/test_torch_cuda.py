@@ -694,12 +694,20 @@ def test_batch_independence_on_card(rng, cuda_device, chain):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,P", [(1, 1), (3, 1000), (2, 1024), (4, 5000), (2, 20011), (0, 7)])
+@pytest.mark.parametrize("B,P", [(1, 1), (3, 1000), (2, 1024), (4, 5000), (2, 20011), (0, 7), (1, 4096),
+                                 (1, 16383), (2, 16384), (1, 16385)])
 def test_moments_kernel_matches_fp64(rng, cuda_device, B, P):
-    """The ``moments`` kernel's three kinds against the float64 sums: each
+    """The ``moments`` kernel's entries against the float64 sums: each
     within 1e-5 of its terms' magnitudes; a rerun and each problem alone
-    give the same bits; sizes off the 1,024-pair chunk and the 64-pair
-    stage, one pair, no problem."""
+    give the same bits; sizes off the 4,096-pair chunk and the raw entry's
+    512-2,048-pair chunks (``raw_plan``), the SLAM step's 4,096 and 16,384
+    pairs, the raw entry's one-launch threshold (16,384) and either side of
+    it, one pair, no problem. 520 raw sums take two launches (32 windows of
+    16 columns a launch). The raw entry at S = 3, 6, 36 and 520 equals its
+    numpy model (``tests/moments_model.py``) bit for bit, and a column's
+    bits do not depend on S, its position or its group."""
+    from moments_model import raw_model
+
     from open3d_slam_private_tpu_torch.kernels import moments as tmk
     from open3d_slam_private_tpu_torch.models import minimizers as tmin
 
@@ -732,11 +740,71 @@ def test_moments_kernel_matches_fp64(rng, cuda_device, B, P):
         for i in range(B):
             alone = tmin.pack_moments(kernel(*(x[i:i + 1].contiguous() for x in args)), layout)
             assert same(alone, got[i:i + 1])
-    terms = torch.tensor(rng.normal(size=(B, P, 170)), dtype=torch.float32, device=cuda_device)
+    terms = torch.tensor(rng.normal(size=(B, P, 520)), dtype=torch.float32, device=cuda_device)
     got = tmk.pair_sums(terms)
-    assert got.shape == (B, 170)
+    assert got.shape == (B, 520)
     assert ((got.double() - terms.double().sum(1)).abs() <= 1e-5 * terms.double().abs().sum(1) + 1e-30).all()
-    assert tmk.moments.launches == before + 2 * (2 + B) + 2  # 170 sums: two launches
+    assert tmk.moments.launches == before + 2 * (2 + B) + 2  # 520 sums, 33 windows of 16: two launches
+    assert same(got, torch.from_numpy(raw_model(terms.cpu().numpy())).to(cuda_device))
+    col = terms[..., 7:8].contiguous()
+    want = tmk.pair_sums(col)
+    for S in (3, 6, 36):
+        t = terms[..., 100:100 + S].contiguous()
+        got = tmk.pair_sums(t)
+        assert same(got, torch.from_numpy(raw_model(t.cpu().numpy())).to(cuda_device))
+        assert ((got.double() - t.double().sum(1)).abs() <= 1e-5 * t.double().abs().sum(1) + 1e-30).all()
+        for j in (0, S - 1):  # column 7 of ``terms`` at position j of S
+            moved = t.clone()
+            moved[..., j] = col[..., 0]
+            assert same(tmk.pair_sums(moved)[:, j], want[:, 0])
+    groups = (terms[..., :3].contiguous(), col, terms[..., 3:39].contiguous())
+    for g, alone in zip(tmk.pair_sums_groups(*groups), (tmk.pair_sums(x) for x in groups)):
+        assert same(g, alone)
+
+
+@pytest.mark.cuda
+def test_pair_sums_graph_capture_and_streams(rng, cuda_device):
+    """``pair_sums_groups`` captured in a CUDA graph (the X-ICP detection's
+    shape: four groups of 16,384 x 3): the capture counts no launch, two
+    replays give the eager call's bits; two streams summing other data at
+    once, on both routes (16,384 and 40,000 pairs), each give their own
+    eager bits."""
+    from open3d_slam_private_tpu_torch.kernels import moments as tmk
+
+    same = lambda x, y: torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))  # noqa: E731
+    groups = [torch.tensor(rng.normal(size=(1, 16384, 3)), dtype=torch.float32, device=cuda_device)
+              for _ in range(4)]
+    eager = torch.cat(tmk.pair_sums_groups(*groups), -1)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        tmk.pair_sums_groups(*groups)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tmk.moments.launches
+    with torch.cuda.graph(graph):
+        captured = tmk.pair_sums_groups(*groups)
+    assert tmk.moments.launches == before
+    graph.replay()
+    first = torch.cat(captured, -1).clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert same(first, eager) and same(torch.cat(captured, -1), eager)
+
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    for P in (16384, 40000):
+        data = [torch.tensor(rng.normal(size=(2, P, 6)), dtype=torch.float32, device=cuda_device)
+                for _ in streams]
+        want = [tmk.pair_sums(x) for x in data]
+        torch.cuda.synchronize()
+        outs = [[], []]
+        for _ in range(20):
+            for i, (st, x) in enumerate(zip(streams, data)):
+                with torch.cuda.stream(st):
+                    outs[i].append(tmk.pair_sums(x))
+        torch.cuda.synchronize()
+        for i in range(2):
+            assert all(same(o, want[i]) for o in outs[i]), (P, i)
 
 
 @pytest.mark.cuda

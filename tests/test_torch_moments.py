@@ -7,7 +7,10 @@ of the largest entry of the JAX system on the same moments; the port's
 moments against its own direct per-pair system at the JAX package's own
 tolerance (``tests/test_icp.py``: rtol 1e-4, atol 1e-2); normals as
 ``test_torch_ops.py`` holds them (|dot| >= 1 - 1e-4 where the two smallest
-covariance eigenvalues differ)."""
+covariance eigenvalues differ). The kernel's summation order, route by
+route, through its numpy model (``tests/moments_model.py``): within 1e-5 of
+each sum's scale of the float64 sum, and a raw column's bits fixed by P
+alone (the card tests hold the kernel to the model's bits)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from open3d_slam_private_tpu_torch.kernels import moments as tmk
 from open3d_slam_private_tpu_torch.models import minimizers as tmin
 from open3d_slam_private_tpu_torch.ops import grid_hash as tgh
 from open3d_slam_private_tpu_torch.ops import normals as tnm
+from moments_model import raw_model, structured_model
 from tests.test_torch_register import reading, scene
 
 TWIST = [0.05, -0.1, 0.2, 0.3, -0.2, 0.1]
@@ -168,3 +172,77 @@ def test_estimate_normals_grid_matches_jax(rng):
     defined = nz_w & (ev[:, 1] - ev[:, 0] > 1e-3 * np.abs(ev).max(1))
     assert defined.sum() >= 0.95 * nz_w.sum()
     assert np.abs((want * got).sum(1)[defined]).min() >= 1 - 1e-4
+
+
+@pytest.mark.parametrize("P", [1, 255, 1000, 1025, 4096, 9000, 16383, 16384, 16385, 40000])
+def test_raw_plan_chunks(P):
+    """The raw entry's chunks cover the P pairs, none empty; one launch (a
+    cluster of at most 8 blocks) exactly up to 16,384 pairs."""
+    G, CH, one = tmk.raw_plan(P)
+    assert one == (P <= tmk.RAW_ONE_LAUNCH)
+    assert (G <= 8) if one else (G > 8)
+    assert (G - 1) * CH < P <= G * CH
+
+
+@pytest.mark.parametrize("P", [1, 300, 1000, 4096, 16384, 16385, 40000])
+def test_raw_order_model_matches_fp64(P):
+    """The raw entry's order (both routes) within 1e-5 of each column's
+    scale of the float64 sum, on terms with a spread of magnitudes and
+    signs, zeros among them."""
+    rng = np.random.default_rng(P)
+    t = (rng.normal(size=(2, P, 5)) * np.exp(rng.normal(0, 2, (2, P, 5)))).astype(np.float32)
+    t[:, ::7, 1] = 0.0
+    t64 = t.astype(np.float64)
+    err = np.abs(raw_model(t) - t64.sum(1))
+    assert (err <= 1e-5 * np.abs(t64).sum(1) + 1e-30).all()
+
+
+@pytest.mark.parametrize("P", [777, 16384, 20000])
+def test_raw_order_depends_on_p_alone(P):
+    """A column's bits in the raw order are the same at S = 1, 3, 6, 36 and
+    160, at any position, in any group and for any B."""
+    rng = np.random.default_rng(3)
+    col = (rng.normal(size=P) * 10.0 ** rng.integers(-3, 4, P)).astype(np.float32)
+    want = raw_model(col[None, :, None])[0, 0]
+    for S, j, B in ((1, 0, 1), (3, 2, 2), (6, 1, 1), (36, 20, 3), (160, 159, 1), (160, 77, 2)):
+        t = rng.normal(size=(B, P, S)).astype(np.float32)
+        t[-1, :, j] = col
+        got = raw_model(t)[-1, j]
+        assert got.view(np.int32) == want.view(np.int32), (S, j, B)
+
+
+@pytest.mark.parametrize("kind", ["point_to_plane", "gicp"])
+@pytest.mark.parametrize("P", [600, 9000])
+def test_structured_order_model_matches_fp64(rng, kind, P):
+    """The structured entries' order within 1e-5 of each sum's scale of the
+    float64 moments, and a problem's bits alone equal to its bits in a
+    batch (the order depends on P alone)."""
+    p0, q, n, sn, w = _pairs(rng, B=3, P=P)
+    got = structured_model(kind, p0, q, n, w, sn)
+    alone = structured_model(kind, p0[1:2], q[1:2], n[1:2], w[1:2], sn[1:2])
+    assert np.array_equal(got[1:2].view(np.int32), alone.view(np.int32))
+    d = [torch.from_numpy(a.astype(np.float64)) for a in (p0, q, n, sn, w)]
+    if kind == "gicp":
+        layout = tmin.GICP_LAYOUT
+        M = tmin._gicp_precision(d[3], d[2], 1e-3) * d[4][..., None, None]
+        want = tmin.gicp_moments_from_precision(d[0], d[1], M, d[4])
+        scale = tmin.gicp_moments_from_precision(d[0].abs(), d[1].abs(), M.abs(), d[4])
+    else:
+        layout = tmin.P2PL_LAYOUT
+        want = tmin.point_to_plane_moments(d[0], d[1], d[2], d[4])
+        scale = tmin.point_to_plane_moments(d[0].abs(), d[1].abs(), d[2].abs(), d[4])
+    want, scale = tmin.pack_moments(want, layout).numpy(), tmin.pack_moments(scale, layout).numpy()
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= 1e-5 * scale + 1e-30).all()
+
+
+def test_pair_sums_groups_cpu_is_each_groups_sum(rng):
+    """On the CPU each group's sums are its own ``t.sum(-2)``, bit for bit
+    (a sum of the groups' concatenation would not be), with lead axes."""
+    groups = [torch.from_numpy(rng.normal(size=(2, 3, 5000, S)).astype(np.float32)) for S in (3, 3, 36, 1)]
+    got = tmk.pair_sums_groups(*groups)
+    assert len(got) == len(groups)
+    for g, t in zip(got, groups):
+        assert g.shape == t.shape[:-2] + t.shape[-1:]
+        assert torch.equal(g, t.sum(-2))
+    assert torch.equal(tmk.pair_sums(groups[2]), groups[2].sum(-2))
