@@ -10,14 +10,19 @@ device time per launch (``torch.profiler`` device-side kernel events, per
 ``__global__`` function where a wrapper launches several), its bound (bytes
 over the card's memory rate or operations over its FP32 rate, the larger)
 and, where one PyTorch call computes the same function, that call's time. K1
-and K3 are also held to bit-identical reruns; K2 also meets its checks on
+and K3 are also held to bit-identical reruns, K1 also bit for bit to its
+order model (``tests/pair_gn_model.py``) at the SLAM step's 1 x 16,384 and
+1 x 4,096 and the headline's 8 x 65,536; K2 also meets its checks on
 inputs that stress its grouping by row (one row, distinct rows, row indices
 out of range, every query masked, an empty row), and K4's table entry is
 held bit for bit on the same stresses in K4's contract; K5 is also held on a
 map-scale near-tie set and timed at the relocalisation burst's 2,097,152 x
 65,536, with its plan (queries a thread, reference splits); normal_eq (the
 normal equations in an order fixed by a problem's size) is held against the
-float64 einsum and to giving a problem the same bits alone as in its batch;
+float64 einsum, to its order model (``tests/normal_eq_model.py``) and to
+giving a problem the same bits alone as in its batch, at the detection's 8 x
+65,536 x 8, the burst's 4,096 x 512 x 1 and the SLAM step's 1 x 16,384 x 1
+and 1 x 4,096 x 1;
 moments (the cached rounds' moment sums, point-to-plane and GICP, and the
 raw pair sums of the X-ICP analysis) likewise, a problem alone against the
 same problem in a batch of 64, and its raw entry at every shape the paths
@@ -76,7 +81,13 @@ times that checkout's sym_eig on the matrices the last full run saved
 
     python3 chip_smoke.py --side DIR --moments
 
-its moments on the inputs the last full run saved (:func:`moments_side`).
+its moments on the inputs the last full run saved (:func:`moments_side`),
+and
+
+    python3 chip_smoke.py --side DIR --k1-normal-eq
+
+its K1 and normal_eq on the inputs the last full run saved
+(:func:`k1_normal_eq_side`).
 """
 
 from __future__ import annotations
@@ -113,7 +124,7 @@ _GROUPED = ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
 # The launch floor's empty kernel, a measurement aid on no path of the port.
 LAUNCH_FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "launch_floor.cu")
 DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
-    "pair_gn": ("pair_gn_fused",),
+    "pair_gn": ("pair_gn_fused", "pair_gn_final"),
     "gather_select": _GROUPED,
     "pair_gn_k": ("pair_gn_k_partial", "pair_gn_k_final"),
     "rank_select_rows": ("rank_select_kernel",),
@@ -338,20 +349,23 @@ def event_device_us(evt, self_time=True):
 def device_us_per_call(fn, kernels, reps=10):
     """Device microseconds per call of ``fn`` spent in the ``__global__``
     functions named in ``kernels``: their device-side events in a
-    ``torch.profiler`` trace of ``reps`` calls (None if the trace holds
+    ``torch.profiler`` trace of ``reps`` calls (None if two traces hold
     none), and the same per function."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    per = {k: sum(event_device_us(e) for e in avgs if k in e.key) / reps for k in kernels}
-    total = sum(per.values())
-    return (total if total > 0 else None), per
+    for _ in range(2):  # the profiler now and then records no device event: one more session then
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        per = {k: sum(event_device_us(e) for e in avgs if k in e.key) / reps for k in kernels}
+        total = sum(per.values())
+        if total > 0:
+            return total, per
+    return None, per
 
 
 def timed(name, fn, plain_fn, nbytes, flops, library_fn=None, plain_reps=20,
@@ -380,7 +394,8 @@ def pair_gn_cost(B, N, K=1):
 def _check_pair_gn(args, name):
     """K1 or K3 against the float64 sum of the plain version's terms: the
     exact counts equal, the sums within 1e-5 of their magnitude; a second
-    call gives the same bits."""
+    call gives the same bits; K1 also bit for bit against its order model
+    (``tests/pair_gn_model.py``)."""
     from open3d_slam_private_tpu_torch.kernels import pair_gn as pgk
 
     B = args[0].shape[0]
@@ -405,8 +420,15 @@ def _check_pair_gn(args, name):
         worst = max(worst, float(((g.double() - r).abs() / (1e-5 * (sc + 1.0))).max()))
     if worst > 1.0:
         raise RuntimeError(f"{name} disagrees with the fp64 sum ({worst:.3g} x tolerance)")
-    return dict(worst_over_tolerance=worst, max_abs_err=float((got - want).abs().max()),
-                max_abs_output=float(want.abs().max()), bit_identical_rerun=True)
+    out = dict(worst_over_tolerance=worst, max_abs_err=float((got - want).abs().max()),
+               max_abs_output=float(want.abs().max()), bit_identical_rerun=True)
+    if name == "pair_gn":
+        model = _tests_module("pair_gn_model").k1_model(*(a.cpu().numpy() if torch.is_tensor(a) else a
+                                                          for a in args))
+        if not np.array_equal(got.cpu().numpy().view(np.int32), model.view(np.int32)):
+            raise RuntimeError("pair_gn differs from its order model (tests/pair_gn_model.py)")
+        out["model_bit_equal"] = True
+    return out
 
 
 def _check_gather_select(table, h, q, m):
@@ -570,7 +592,8 @@ def phase_kernels(hs):
         adversarial_id_agreement={k: v["id_agreement"] for k, v in adversarial.items()}))
 
     # K1: one in-round GN linearisation on that round's pairs, at the
-    # headline's 8 x 65,536 and at the SLAM step's 1 x 16,384.
+    # headline's 8 x 65,536 and at the SLAM step's 1 x 16,384 (odometry and
+    # the mapper's fine rounds) and 1 x 4,096 (the coarse rounds, stride 4).
     rows, valid = cell_mod.gather_cell_candidates(grid, src0, readings.mask)
     res0 = match_from_candidates(rows, valid, src0, readings.mask, cfg.max_match_dist)
     del rows, valid
@@ -581,8 +604,10 @@ def phase_kernels(hs):
     n1 = 16384
     args1 = tuple(a[:1, :n1].contiguous() for a in args8[:4]) + (T[:1].contiguous(),
                                                                   tau[:1].contiguous(), args8[6])
+    args4 = tuple(a[:1, :n1:4].contiguous() for a in args8[:4]) + args1[4:]
     k1 = {}
-    for shape, args in (("1x16384", args1), ("8x65536", args8)):
+    k1_inputs = {"1x16384": args1, "1x4096": args4, "8x65536": args8}
+    for shape, args in k1_inputs.items():
         check = _check_pair_gn(args, "pair_gn")
         k1[shape] = dict(**check, **timed("pair_gn", lambda a=args: pgk.pair_gn(*a),
                                           lambda a=args: pgk.pair_gn_plain(*a),
@@ -592,14 +617,18 @@ def phase_kernels(hs):
     results.insert(0, dict(
         name="pair_gn", route="cuda", source="open3d_slam_private_tpu_torch/csrc/pair_gn.cu",
         replaces="open3d_slam_private_tpu/kernels/pair_gn_pallas.py:261", shape="1x16384",
-        **main_k1, at_headline_8x65536=k1["8x65536"]))
-    del args8, args1, res0
+        **main_k1, at_coarse_1x4096=k1["1x4096"], at_headline_8x65536=k1["8x65536"]))
+    saved = {f"pair_gn {k}": [a.cpu() if torch.is_tensor(a) else a for a in v] for k, v in k1_inputs.items()}
+    del args8, args1, args4, res0, k1_inputs
 
     results.append(_check_pair_gn_k(ref, readings, cfg, T, src0))
     results.append(_check_rank_select(grid, h, q, m))
     results.append(_check_rank_select_table(grid, h, q, m))
     results.append(_check_knn_brute(ref, src0))
-    results.append(_check_normal_eq(ref, readings, cfg, src0))
+    results.append(_check_normal_eq(ref, readings, cfg, src0, saved))
+    os.makedirs(os.path.dirname(K1_NORMAL_EQ_INPUTS), exist_ok=True)
+    torch.save(saved, K1_NORMAL_EQ_INPUTS)
+    del saved
     results.append(_check_moments(hs, T, src0))
     results.append(_check_sym_eig(hs))
     return results
@@ -739,14 +768,20 @@ def _normal_eq_fp64(src, q, n, w):
             torch.einsum("bnki,bnk->bi", cw.abs(), r.abs()))
 
 
-def _check_normal_eq(ref, readings, cfg, src0):
+def _check_normal_eq(ref, readings, cfg, src0, saved=None):
     """normal_eq: the X-ICP detection's normal equations on the headline
     batch matched at knn = 8 (8 x 65,536 x 8 pairs, the round's frozen trim
-    weights), and at the relocalisation burst's 4,096 x 512 x 1 (the same
-    pairs, knn = 1, four times over). Held against the float64 einsum
-    within 1e-5 of each entry's scale; a rerun and each problem run alone
+    weights), at the relocalisation burst's 4,096 x 512 x 1 (the same
+    pairs, knn = 1, four times over), and at the SLAM step's detections,
+    1 x 16,384 x 1 (odometry and the mapper's fine rounds: the first
+    problem's first 16,384 points, knn = 1) and 1 x 4,096 x 1 (the coarse
+    rounds: every fourth of those). Held against the float64 einsum within
+    1e-5 of each entry's scale and bit for bit against the order model
+    (``tests/normal_eq_model.py``; the first problem of the detection
+    shape, the first 64 of the burst); a rerun and each problem run alone
     (the first three as a batch of 1) give the same bits; timed against the
-    plain float32 einsum (its two cuBLAS einsums alone are ``library_ms``)."""
+    plain float32 einsum (its two cuBLAS einsums alone are ``library_ms``).
+    ``saved`` (a dict) takes each shape's inputs (CPU copies)."""
     from open3d_slam_private_tpu_torch.kernels import normal_eq as nek
     from open3d_slam_private_tpu_torch.models import icp as icp_mod
     from open3d_slam_private_tpu_torch.ops import cell_list as cell_mod
@@ -765,9 +800,15 @@ def _check_normal_eq(ref, readings, cfg, src0):
     first = (knn8[0].reshape(-1, S, 3), knn8[1][:, :, 0].reshape(-1, S, 1, 3),
              knn8[2][:, :, 0].reshape(-1, S, 1, 3), knn8[3][:, :, 0].reshape(-1, S, 1))
     burst = tuple(x.repeat(reps, *([1] * (x.dim() - 1))).contiguous() for x in first)
+    slam16 = (knn8[0][:1, :16384].contiguous(),) + tuple(x[:1, :16384, :1].contiguous() for x in knn8[1:])
+    slam4 = tuple(x[:, ::4].contiguous() for x in slam16)
+    model = _tests_module("normal_eq_model").ne_model
     out = {}
-    for shape, args in (("8x65536x8", knn8), (f"{HYPOTHESES}x{SKELETON_POINTS}x1", burst)):
+    for shape, args in (("8x65536x8", knn8), (f"{HYPOTHESES}x{SKELETON_POINTS}x1", burst),
+                        ("1x16384x1", slam16), ("1x4096x1", slam4)):
         B, N, K = args[3].shape
+        if saved is not None:
+            saved[f"normal_eq {shape}"] = [x.cpu() for x in args]
         A, b = nek.normal_eq(*args)
         A2, b2 = nek.normal_eq(*args)
         alone = [nek.normal_eq(*(x[i:i + 1].contiguous() for x in args)) for i in range(min(3, B))]
@@ -784,6 +825,11 @@ def _check_normal_eq(ref, readings, cfg, src0):
             raise RuntimeError(f"normal_eq at {shape} disagrees with the fp64 einsum "
                                f"({worst:.3g} x tolerance)")
         del A64, b64, sA, sb
+        head = min(B, 1 if K > 1 else 64)
+        want = model(*(x[:head].cpu().numpy() for x in args))
+        got = torch.cat([A[:head].reshape(head, 36), b[:head]], 1).cpu().numpy()
+        if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            raise RuntimeError(f"normal_eq at {shape} differs from its order model (tests/normal_eq_model.py)")
         pA, pb = nek.normal_eq_plain(*args)
         err = max(float((A - pA).abs().max()), float((b - pb).abs().max()))
         p = args[0][:, :, None, :].expand(args[1].shape)
@@ -806,13 +852,15 @@ def _check_normal_eq(ref, readings, cfg, src0):
         floor_ms = bound(B * N * 12 + B * N * K * 28 + B * 42 * 4, 0)["bound_ms"]
         out[shape] = dict(worst_over_tolerance=worst, max_abs_err=err, weighted_pairs=weighted,
                           pairs=B * N * K, sector_floor_ms=floor_ms, bit_identical_rerun=True,
-                          batch_independent=True, **t)
+                          batch_independent=True, model_bit_equal_problems=head,
+                          plan=list(nek.ne_plan(N * K)), **t)
         say("kernel", name="normal_eq", shape=shape, **out[shape])
     main = {k: v for k, v in out["8x65536x8"].items() if k != "worst_over_tolerance"}
     return dict(name="normal_eq", route="cuda", source="open3d_slam_private_tpu_torch/csrc/normal_eq.cu",
                 replaces="open3d_slam_private_tpu/models/minimizers.py:65",
                 replaces_note="an XLA computation of the JAX package, not a Pallas kernel",
-                shape="8x65536x8", **main, at_burst=out[f"{HYPOTHESES}x{SKELETON_POINTS}x1"])
+                shape="8x65536x8", **main, at_burst=out[f"{HYPOTHESES}x{SKELETON_POINTS}x1"],
+                at_slam_1x16384x1=out["1x16384x1"], at_slam_1x4096x1=out["1x4096x1"])
 
 
 def gicp_readings(hs):
@@ -1406,7 +1454,7 @@ class StageClock:
                 for e in prof.key_averages():
                     if any(k in e.key for k in DEVICE_KERNELS["pair_gn"]):
                         self.k1_device_us += event_device_us(e)
-                        self.k1_profiled += e.count
+                        self.k1_profiled += e.count if "pair_gn_fused" in e.key else 0
             else:
                 out = fn(*args, **kwargs)
             sync(self.dev)
@@ -2115,6 +2163,40 @@ def moments_side(root):
     say("moments_side", root=root, package=os.path.dirname(open3d_slam_private_tpu_torch.__file__), shapes=out)
 
 
+K1_NORMAL_EQ_INPUTS = "build/k1_normal_eq_inputs.pt"  # the kernel phase's inputs, for --k1-normal-eq
+
+
+def k1_normal_eq_side(root):
+    """``--side DIR --k1-normal-eq``: the checkout at ``DIR``'s K1 and
+    normal_eq on the main run's saved inputs (``K1_NORMAL_EQ_INPUTS``: K1 at
+    1 x 16,384, 1 x 4,096 and 8 x 65,536, normal_eq at 8 x 65,536 x 8,
+    4,096 x 512 x 1, 1 x 16,384 x 1 and 1 x 4,096 x 1): device us a call
+    (the wrapper's ``__global__`` functions in a profiled session), us a
+    call inside a captured CUDA graph of 20 (:func:`graph_us`) and wrapper
+    ms, with the launch floor (:func:`launch_floor`) of the same process. To
+    compare, run it once per side, each in its own process, in one call to
+    the card after a full run (parent, change, change, parent)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import open3d_slam_private_tpu_torch
+    from open3d_slam_private_tpu_torch.kernels import normal_eq as nek
+    from open3d_slam_private_tpu_torch.kernels import pair_gn as pgk
+
+    phase_device()
+    dev = torch.device("cuda", 0)
+    saved = torch.load(K1_NORMAL_EQ_INPUTS)
+    floor = launch_floor(dev)
+    out = {}
+    for key, args in saved.items():
+        kernel, _ = key.split()
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        fn = (lambda a=args: pgk.pair_gn(*a)) if kernel == "pair_gn" else (lambda a=args: nek.normal_eq(*a))
+        us, per = device_us_per_call(fn, DEVICE_KERNELS[kernel])
+        out[key] = dict(device_us=us, device_us_by_kernel=per, graph_us=graph_us(fn), ms=cuda_ms(fn))
+    say("k1_normal_eq_side", root=root, package=os.path.dirname(open3d_slam_private_tpu_torch.__file__),
+        launch_floor=floor, shapes=out)
+
+
 def _counters():
     from open3d_slam_private_tpu_torch.kernels import (
         gather_select,
@@ -2582,6 +2664,8 @@ if __name__ == "__main__":
         sym_eig_side(sys.argv[2])
     elif sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--moments"]:
         moments_side(sys.argv[2])
+    elif sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--k1-normal-eq"]:
+        k1_normal_eq_side(sys.argv[2])
     elif sys.argv[1:2] == ["--side"]:
         compare_side(sys.argv[2])
     else:

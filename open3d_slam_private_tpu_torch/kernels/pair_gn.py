@@ -2,8 +2,10 @@
 
 K1 (knn = 1) replaces ``pair_gn_step_folded``
 (``open3d_slam_private_tpu/kernels/pair_gn_pallas.py:261``); its CUDA kernel
-is ``csrc/pair_gn.cu`` (one launch a call, its output the full 6 x 6 A, b
-and the three sums, unpacked as views). K3 (K <= 8 pairs per point) replaces ``pair_gn_step``
+is ``csrc/pair_gn.cu`` (its output the full 6 x 6 A, b and the three sums,
+unpacked as views; up to 16,384 points a problem one launch of one thread
+block cluster, beyond a second kernel over a scratch the call allocates;
+:func:`k1_plan`). K3 (K <= 8 pairs per point) replaces ``pair_gn_step``
 (``pair_gn_pallas.py:136``); its CUDA kernel is ``csrc/pair_gn_k.cu``.
 :func:`pair_gn_plain` and :func:`pair_gn_k_plain` are the same functions in
 plain PyTorch. :func:`pair_gn` and :func:`pair_gn_k` run the plain version
@@ -37,13 +39,16 @@ from open3d_slam_private_tpu_torch.kernels import _build
 N_OUT = 31  # the plain version's and K3's sums: 21 upper-triangle A, b, sum w, sum w r^2, sum w, n ok
 K1_OUT = 45  # K1's output row: the full 6 x 6 A, b, sum w, sum w r^2, n ok
 _THREADS = 256
-_K1_TILE = 512  # points a K1 tile (csrc/pair_gn.cu kTile)
-_K1_BLOCKS = 32  # K1's blocks per problem, at most
+K1_TILE = 256  # points a K1 tile, one a thread of a block, up to K1_ONE_LAUNCH points (csrc/pair_gn.cu Block)
+K1_WIDE_TILE = 512  # the same beyond
+K1_MAX_TILES = 4  # tiles a K1 block (kMaxTiles)
+K1_MAX_CLUSTER = 16  # blocks a K1 cluster (kMaxCluster; past 8 the non-portable size)
+K1_ONE_LAUNCH = 16384  # points a problem, at most, in one launch
 _K3_BLOCKS = 128  # K3's blocks per problem, at most
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pair_gn_launch(reading, pair_xyz, pair_nrm, valid, T, tau, max_d2, B, N,
-#                nblocks, tiles_per_block, partial, counter, out, stream)
-_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P, _P]
+#                G, tiles_per_block, cluster, partial, out, stream)
+_LAUNCH_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P, _P, _P]
 # pair_gn_k_launch(reading, pair_xyz, pair_nrm, valid, T, tau, max_d2, B, N, K,
 #                  nblocks, partial, out, stream)
 _LAUNCH_K_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P]
@@ -185,15 +190,26 @@ def num_blocks(N: int) -> int:
     return max(1, min(math.ceil(N / _THREADS), _K3_BLOCKS))
 
 
-def k1_grid(N: int):
-    """K1's (blocks per problem, tiles per block): as many 512-point tiles
-    a block as keep a problem at 32 blocks or fewer, at least one. A
-    function of the problem's size N alone, so a problem sums in the same
-    order in any batch (1 x 16,384: 32 blocks of one tile; 8 x 65,536: 256
-    blocks of four)."""
-    tiles = -(-N // _K1_TILE)
-    per_block = max(1, -(-tiles // _K1_BLOCKS))
-    return max(1, -(-tiles // per_block)), per_block
+def k1_plan(N: int) -> tuple[int, int, bool]:
+    """K1's chunks for ``N`` points a problem: ``(G, tiles a block, one
+    launch)``. The points are cut into tiles of one point a thread of a
+    block (``K1_TILE``, 256, up to ``K1_ONE_LAUNCH`` points; ``K1_WIDE_TILE``,
+    512, beyond), the tiles into G chunks of ``tiles a block``, one block a
+    chunk: chunk g holds tiles ``[g t, min(tiles, (g + 1) t))``. Up to
+    ``K1_ONE_LAUNCH`` points the G <= 16 blocks are one thread block
+    cluster (one launch: 1 x 16,384 is 16 blocks of 4 tiles, 1 x 4,096 16
+    blocks of 1); beyond, chunks of 4 tiles and a second kernel. A function
+    of N alone, so a problem sums in the same order in any batch."""
+    if N <= K1_ONE_LAUNCH:
+        tiles = -(-N // K1_TILE)
+        per_block = max(1, -(-tiles // K1_MAX_CLUSTER))
+        return max(1, -(-tiles // per_block)), per_block, True
+    return -(-N // (K1_WIDE_TILE * K1_MAX_TILES)), K1_MAX_TILES, False
+
+
+def k1_tile(N: int) -> int:
+    """Points a tile (threads a block) of K1 at N points a problem."""
+    return K1_TILE if N <= K1_ONE_LAUNCH else K1_WIDE_TILE
 
 
 def unpack_k1(out: torch.Tensor):
@@ -203,27 +219,6 @@ def unpack_k1(out: torch.Tensor):
     B, view = out.shape[0], out.as_strided
     return (view((B, 6, 6), (K1_OUT, 6, 1)), view((B, 6), (K1_OUT, 1), 36),
             view((B,), (K1_OUT,), 42), view((B,), (K1_OUT,), 43), view((B,), (K1_OUT,), 44))
-
-
-_K1_COUNTER: dict = {}  # device -> int32 arrival counters a problem, zero between calls
-_K1_PARTIAL: dict = {}  # device -> float32 partial rows of the blocks
-
-
-def _k1_buffers(dev, B: int, n_partial: int):
-    """K1's per-device scratch, grown and never shrunk: the counters (the
-    kernel's last block resets its own) and the blocks' partial rows. Calls
-    on one stream use them in turn. Growing raises inside a CUDA graph
-    capture (``_build.no_capture``)."""
-    counter = _K1_COUNTER.get(dev)
-    if counter is None or counter.numel() < B:
-        _build.no_capture("pair_gn")
-        counter = _K1_COUNTER[dev] = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
-    partial = _K1_PARTIAL.get(dev)
-    if partial is None or partial.numel() < n_partial:
-        _build.no_capture("pair_gn")
-        partial = _K1_PARTIAL[dev] = torch.empty(max(n_partial, 1 << 14), dtype=torch.float32,
-                                                 device=dev)
-    return counter, partial
 
 
 _F32 = torch.float32
@@ -254,7 +249,8 @@ def pair_gn(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
     a scalar ``max_d2`` -> ``(A [B, 6, 6], b [B, 6], sum_w [B], sum_wr2 [B],
     n_ok [B])`` (views of one ``[B, 45]`` tensor). CPU tensors take
     :func:`pair_gn_plain`; CUDA tensors launch the kernel (counted in
-    ``pair_gn.launches``) or raise. One launch a call."""
+    ``pair_gn.launches``; ``pair_gn_fused``, and ``pair_gn_final`` beyond
+    ``K1_ONE_LAUNCH`` points) or raise."""
     dev = reading.device
     if dev.type == "cpu":
         return pair_gn_plain(reading, pair_xyz, pair_normals, valid, T, tau, max_d2)
@@ -269,13 +265,15 @@ def pair_gn(reading, pair_xyz, pair_normals, valid, T, tau, max_d2: float):
         _build.check_tensor("valid", valid, (B, N), (torch.bool, torch.uint8), dev)
         _build.check_tensor("T", T, (B, 4, 4), f32, dev)
         _build.check_tensor("tau", tau, (B,), f32, dev)
-    nblocks, per_block = k1_grid(N)
-    counter, partial = _k1_buffers(dev, B, B * nblocks * 32)
+    G, per_block, one = k1_plan(N)
+    # Beyond one cluster the chunks' rows go through scratch of this call
+    # alone (inside a capture, from the graph's own pool).
+    partial = None if one else torch.empty(B * G * 32, dtype=_F32, device=dev)
     out = torch.empty((B, K1_OUT), dtype=_F32, device=dev)
     lib = _build.load("pair_gn", _LAUNCH_ARGTYPES)
     args = (reading.data_ptr(), pair_xyz.data_ptr(), pair_normals.data_ptr(), valid.data_ptr(),
-            T.data_ptr(), tau.data_ptr(), float(max_d2), B, N, nblocks, per_block,
-            partial.data_ptr(), counter.data_ptr(), out.data_ptr())
+            T.data_ptr(), tau.data_ptr(), float(max_d2), B, N, G, per_block, int(one),
+            0 if partial is None else partial.data_ptr(), out.data_ptr())
     if dev.index == torch.cuda.current_device():
         rc = lib.pair_gn_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     else:

@@ -86,14 +86,28 @@ def _fp64_check(got, args):
             assert ((g.double() - w).abs() <= 1e-5 * (s + 1.0)).all()
 
 
+def _k1_rows(got):
+    """K1's five outputs -> its ``[B, 45]`` rows (A row-major, b, sum w,
+    sum w r^2, n ok)."""
+    B = got[0].shape[0]
+    return torch.cat([x.reshape(B, -1) for x in got], 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,case", [(1, 16411, "plain"), (8, 20003, "plain"), (8, 65536, "plain"),
-                                      (3, 5001, "all-invalid"), (2, 7777, "unaligned")])
+                                      (3, 5001, "all-invalid"), (2, 7777, "unaligned"),
+                                      (1, 4096, "plain"), (1, 16384, "plain"), (128, 512, "plain"),
+                                      (2, 1, "plain"), (2, 0, "plain"), (1, 16384, "unaligned")])
 def test_pair_gn_one_launch_matches_fp64(rng, cuda_device, B, n, case):
-    """One launch a call at B = 1 and 8, point counts off the 512-point tile
-    and off the 16-byte boundary of a problem's rows, all points invalid, and
-    inputs 4 bytes off a 16-byte boundary; a second call gives the same
-    bits."""
+    """One call a wrapper launch at the SLAM step's 1 x 4,096 and 1 x
+    16,384 (one cluster), the headline's 8 x 65,536 and point counts off
+    the 512-point tile and past one cluster (a second kernel), 128 problems,
+    1 and 0 points, all points invalid, and inputs 4 bytes off a 16-byte
+    boundary: within the fp64 tolerance with exact counts, equal bit for
+    bit to the order model (``tests/pair_gn_model.py``), and a second call
+    gives the same bits."""
+    from pair_gn_model import k1_model
+
     args = _pairs(rng, B=B, n=n, device=cuda_device)
     if case == "all-invalid":
         args[3] = torch.zeros_like(args[3])
@@ -108,6 +122,8 @@ def test_pair_gn_one_launch_matches_fp64(rng, cuda_device, B, n, case):
     _fp64_check(got, args)
     if case == "all-invalid":
         assert all(bool((g == 0).all()) for g in got)
+    model = k1_model(*(a.cpu().numpy() if torch.is_tensor(a) else a for a in args))
+    assert np.array_equal(_k1_rows(got).cpu().numpy().view(np.int32), model.view(np.int32))
     again = tpg.pair_gn(*args)
     for g, a in zip(got, again):
         assert torch.equal(g.view(torch.int32), a.view(torch.int32))
@@ -544,12 +560,20 @@ def _normal_eq_inputs(rng, B, n, K, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,K", [(3, 5003, 1), (2, 20000, 8), (5, 7, 3), (1, 0, 1)])
+@pytest.mark.parametrize("B,n,K", [(3, 5003, 1), (2, 20000, 8), (5, 7, 3), (1, 0, 1), (1, 4096, 1),
+                                   (1, 16384, 1), (64, 512, 1), (1, 65536, 8), (1, 65536, 1),
+                                   (64, 1024, 1), (3, 6000, 3), (2, 513, 1)])
 def test_normal_eq_kernel_matches_plain(rng, cuda_device, B, n, K):
     """normal_eq against the float64 sums of the plain version's function,
-    within 1e-5 of each entry's magnitude; a rerun and each problem run
-    alone give the same bits; off the 1,024-pair chunk and with no pair."""
+    within 1e-5 of each entry's magnitude, and bit for bit against the
+    order model (``tests/normal_eq_model.py``) on each route: one warp a
+    problem (the burst's 512 pairs), one cluster (the SLAM step's 1 x 4,096
+    x 1 and 1 x 16,384 x 1), two passes (the detection's 65,536 x 8, the
+    per-iteration chain's 65,536 x 1); a rerun and each problem run alone
+    (the first 8) give the same bits; off the chunks, K other than 1 and
+    8, and with no pair."""
     from chip_smoke import _normal_eq_fp64
+    from normal_eq_model import ne_model
     from open3d_slam_private_tpu_torch.kernels import normal_eq as tne
 
     args = _normal_eq_inputs(rng, B, n, K, cuda_device)
@@ -562,10 +586,13 @@ def test_normal_eq_kernel_matches_plain(rng, cuda_device, B, n, K):
     pA, pb = tne.normal_eq_plain(*args)  # the float32 einsum: also within 1e-5 of the magnitude
     assert ((A.double() - pA.double()).abs() <= 2e-5 * (sA + 1.0)).all()
     assert ((b.double() - pb.double()).abs() <= 2e-5 * (sb + 1.0)).all()
+    model = ne_model(*(x.cpu().numpy() for x in args))
+    got = torch.cat([A.reshape(B, 36), b], 1).cpu().numpy()
+    assert np.array_equal(got.view(np.int32), model.view(np.int32))
     A2, b2 = tne.normal_eq(*args)
     assert torch.equal(A.view(torch.int32), A2.view(torch.int32))
     assert torch.equal(b.contiguous().view(torch.int32), b2.contiguous().view(torch.int32))
-    for i in range(B):
+    for i in range(min(B, 8)):
         Ai, bi = tne.normal_eq(*(x[i:i + 1].contiguous() for x in args))
         assert torch.equal(Ai.view(torch.int32), A[i:i + 1].view(torch.int32))
         assert torch.equal(bi.contiguous().view(torch.int32), b[i:i + 1].contiguous().view(torch.int32))
@@ -962,22 +989,85 @@ def test_sym_eig_kernel_refuses_bad_inputs(cuda_device):
 @pytest.mark.cuda
 def test_scratch_growth_inside_capture_raises(rng, cuda_device):
     """A kernel scratch buffer that would have to grow while a CUDA graph is
-    being captured raises (a graph holds the old buffer by address)."""
-    args = _pairs(rng, B=2, n=3000, device=cuda_device)
-    tpg.pair_gn(*args)  # sized outside the capture: captures fine
-    saved = tpg._K1_COUNTER.pop(cuda_device, None), tpg._K1_PARTIAL.pop(cuda_device, None)
+    being captured raises (a graph holds the old buffer by address): K2's
+    per-device row counts and scratch (``kernels/gather_select.py``), the
+    one such buffer left; K1 keeps none."""
+    scene = torch.tensor(_scene(rng), device=cuda_device)
+    mask = torch.ones(scene.shape[0], dtype=torch.bool, device=cuda_device)
+    nrm = torch.nn.functional.normalize(torch.randn(scene.shape, device=cuda_device), dim=-1)
+    cl = tcl.build_cell_list(scene, mask, 0.5, table_size=1 << 12, list_cap=24, normals=nrm)
+    q = scene[:3000] + 0.05 * torch.randn(3000, 3, device=cuda_device)
+    qm = torch.ones(3000, dtype=torch.bool, device=cuda_device)
+    h = tcl.query_hash(cl, q)
+    want = tgs.gather_select(cl.table, h, q, qm)  # sized outside the capture: captures fine
+    saved = tgs._COUNT.pop(cuda_device, None), tgs._SCRATCH.pop(cuda_device, None)
     try:
         graph = torch.cuda.CUDAGraph()
         with pytest.raises(RuntimeError, match="scratch would grow inside a CUDA graph capture"):
             with torch.cuda.graph(graph):
-                tpg.pair_gn(*args)
+                tgs.gather_select(cl.table, h, q, qm)
     finally:
-        for cache, buf in zip((tpg._K1_COUNTER, tpg._K1_PARTIAL), saved):
+        for cache, buf in zip((tgs._COUNT, tgs._SCRATCH), saved):
             if buf is not None:
                 cache[cuda_device] = buf
     torch.cuda.synchronize()
-    out = tpg.pair_gn(*args)  # the wrapper still works after the refused capture
-    assert torch.isfinite(out[0]).all()
+    got = tgs.gather_select(cl.table, h, q, qm)  # the wrapper still works after the refused capture
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _nan_fills():
+    """NaN-filled float32 tensors that take every free block of the caching
+    allocator's small pool (blocks of up to 1 MB, where a kernel wrapper's
+    scratch lives): 64 KB tensors, then 512-byte ones, each until the pool
+    has to reserve a new segment. Whatever memory a freed buffer left there,
+    one of them now holds."""
+    fills = []
+    for words in (16384, 128):
+        reserved = torch.cuda.memory_reserved()
+        while torch.cuda.memory_reserved() == reserved:
+            fills.append(torch.full((words,), float("nan"), device="cuda"))
+    return fills
+
+
+def _all_nan(fills) -> bool:
+    return bool(torch.cat(fills).isnan().all())
+
+
+@pytest.mark.cuda
+def test_captured_pair_gn_survives_larger_calls(rng, cuda_device):
+    """A K1 call captured in a CUDA graph at the SLAM step's 1 x 16,384
+    replays to its first replay's bits after eager K1 calls at 200 x 512
+    and 10 x 65,536 (more problems and more blocks' rows than any other
+    test's), with every free block of the allocator's small pool then taken
+    by NaN-filled tensors and the graph's output set to NaN before the
+    replay; the replay writes nothing into those tensors. (A scratch kept
+    per device and replaced by a larger one would leave the graph pointing
+    at freed memory; the warm-up runs on the current stream, so such a
+    scratch, freed, would return to the pool the NaN tensors draw from.)"""
+    args = _pairs(rng, B=1, n=16384, device=cuda_device)
+    tpg.pair_gn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tpg.pair_gn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = _k1_rows(got).clone()
+    assert bool(torch.isfinite(first).all())
+    # Both inputs first, so that no allocation between the large calls and
+    # the NaN tensors can take a block the calls free.
+    big = [_pairs(rng, B=B, n=n, device=cuda_device) for B, n in ((200, 512), (10, 65536))]
+    outs = [_k1_rows(tpg.pair_gn(*a)) for a in big]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    del big, outs
+    fills = _nan_fills()
+    for x in got:
+        x.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_k1_rows(got).view(torch.int32), first.view(torch.int32))
+    assert _all_nan(fills)
 
 
 @pytest.mark.cuda
@@ -1133,3 +1223,65 @@ def test_realtime_graph_modes_match_eager(cuda_device, mode):
             checked += 4
     pipe.finish()
     assert checked >= 12 and np.isfinite(pipe.trajectory()).all()
+
+
+def _large_fused_calls(rng, dev):
+    """K1 on the fused path where a shared scratch would have grown: an
+    ``icp_batch`` of 8 readings of 65,536 points (more partial rows than
+    16,384 words) and a ``register_hypotheses`` of 300 seeds (more problems
+    than 64, and than any other test's; ``register_batch`` runs each
+    problem alone, so neither shape reaches K1 through it). Returns NaN-filled tensors that hold every free
+    block of the allocator's small pool after them (the caller keeps them
+    alive)."""
+    scene = _scene(rng, n=65536)
+    cfg = ticp.ICPConfig(knn=1, max_match_dist=0.5, matcher="grid", grid_table_size=1 << 14,
+                         grid_bucket_cap=32, trimmed_ratio=0.9, fast_trimming=True, max_iterations=4,
+                         candidate_refresh_every=2, fused_kernel=True)
+    ref_b = tpc.from_points(scene, capacity=65536, device=dev)
+    g = tgh.build_grid(ref_b.padded_xyz(), ref_b.mask, 2.0, 1 << 12, 32)
+    ref_b = tnm.estimate_normals_moments(ref_b, g, max_dist=1.0, orient_towards=torch.zeros(3, device=dev))
+    readings = tpc.stack([tpc.from_points(scene + 0.003 * (k + 1), device=dev) for k in range(8)])
+    before = tpg.pair_gn.launches
+    ticp.icp_batch(readings, ticp.build_reference(ref_b, cfg), torch.eye(4, device=dev).expand(8, 4, 4), cfg)
+    reading = tpc.from_points(torch.tensor(scene[1::64][:1024], device=dev) + 0.003, device=dev)
+    twists = np.c_[rng.uniform(-0.05, 0.05, (300, 3)), rng.uniform(-0.5, 0.5, (300, 3))]
+    seeds = se3.exp_se3(torch.tensor(twists, dtype=torch.float32)).to(dev)
+    ticp.register_hypotheses(reading, ref_b, seeds, cfg)
+    torch.cuda.synchronize()
+    assert tpg.pair_gn.launches > before
+    return _nan_fills()
+
+
+@pytest.mark.cuda
+def test_realtime_poses_survive_large_fused_calls(rng, cuda_device):
+    """``RealtimePipeline``'s poses and stats rows equal, bit for bit, a run
+    of the same scans in which K1 runs eagerly at 8 x 65,536 and at 300
+    problems on the fused path between scans, after which NaN-filled
+    tensors take every free block of the allocator's small pool and are
+    held through the later scans untouched: the step graph holds no buffer
+    that such calls replace. (One K1 call on the current stream comes
+    first: a scratch kept per device, as an earlier version kept, would be
+    allocated there rather than on the capture's warm-up stream, so that,
+    freed, it returns to the pool the NaN tensors draw from.)"""
+    from open3d_slam_private_tpu_torch.slam import realtime as trt
+
+    cfg, scans = _rt_setup()
+    tpg.pair_gn(*_pairs(rng, B=1, n=1024, device=cuda_device))
+
+    def run(interrupt):
+        pipe = trt.RealtimePipeline(cfg, poll_every=1, device=cuda_device)
+        held = []
+        for k, scan in enumerate(scans):
+            pipe.process_scan(scan, 0.1 * k)
+            if interrupt and k == 5:
+                held = _large_fused_calls(rng, cuda_device)
+        pipe.finish()
+        assert not held or _all_nan(held)
+        return np.stack(pipe.trajectory()), [f.stats for f in pipe.frames]
+
+    poses, stats = run(False)
+    poses2, stats2 = run(True)
+    assert np.isfinite(poses).all() and len(stats) == len(stats2) == len(scans)
+    assert np.array_equal(poses.view(np.uint8), poses2.view(np.uint8))
+    assert all((a is None and b is None) or np.array_equal(a.view(np.uint8), b.view(np.uint8))
+               for a, b in zip(stats, stats2))
