@@ -87,7 +87,12 @@ and
     python3 chip_smoke.py --side DIR --k1-normal-eq
 
 its K1 and normal_eq on the inputs the last full run saved
-(:func:`k1_normal_eq_side`).
+(:func:`k1_normal_eq_side`), and
+
+    python3 chip_smoke.py --side DIR --gather-select
+
+its K2 and K4's table entry on the headline round the last full run saved
+(:func:`gather_select_side`).
 """
 
 from __future__ import annotations
@@ -119,8 +124,10 @@ KERNEL_MODULES = {  # library name -> wrapper module
     "rank_select": "select", "knn_brute": "knn_brute", "normal_eq": "normal_eq",
     "moments": "moments", "sym_eig": "sym_eig",
 }
-_GROUPED = ("gather_select_count", "gather_select_rowsum", "gather_select_scan",
-            "gather_select_scatter", "gather_select_rank")
+# K2's and K4's table entry's passes: the call's memset (the row counts and
+# the scan's look-back words) and four __global__ functions.
+_GROUPED = ("Memset", "gather_select_count", "gather_select_scan", "gather_select_scatter",
+            "gather_select_rank")
 # The launch floor's empty kernel, a measurement aid on no path of the port.
 LAUNCH_FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "launch_floor.cu")
 DEVICE_KERNELS = {  # wrapper -> the __global__ functions it launches
@@ -432,28 +439,23 @@ def _check_pair_gn(args, name):
 
 
 def _check_gather_select(table, h, q, m):
-    """K2 against its plain version: ids agree on >= 99.99% of the queries,
-    where they do not the distances tie within 1e-6, the agreeing rows'
-    first 8 words are the same bits, occupancy agrees everywhere."""
+    """K2 against its plain version, bit for bit on every row, and a second
+    call's bits equal to the first's (the order within a row varies)."""
     from open3d_slam_private_tpu_torch.kernels import gather_select as gsk
 
     got = gsk.gather_select(table, h, q, m)
+    again = gsk.gather_select(table, h, q, m)
     want = gsk.gather_select_plain(table, h, q, m)
     torch.cuda.synchronize()
     gi, wi = got.view(torch.int32), want.view(torch.int32)
-    same = gi[:, 3] == wi[:, 3]
-    agree = float(same.float().mean())
-    gd, wd = got[:, 7], want[:, 7]
-    tie_ok = bool(((gd - wd).abs() <= 1e-6 * wd.abs())[~same].all())
-    bits_ok = bool((gi[same][:, :8] == wi[same][:, :8]).all())
-    occ_ok = bool((got[:, 8] == want[:, 8]).all())
-    fin = same & torch.isfinite(wd)
+    bitwise = float((gi == wi).all(1).float().mean())
+    if bitwise != 1.0 or not torch.equal(again.view(torch.int32), gi):
+        raise RuntimeError(f"gather_select disagrees with its plain version: bitwise rows {bitwise}, "
+                           f"rerun equal {torch.equal(again.view(torch.int32), gi)}")
+    fin = torch.isfinite(want[:, 7])
     err = float((got[fin][:, :8] - want[fin][:, :8]).abs().max()) if bool(fin.any()) else 0.0
-    if not (agree >= 0.9999 and tie_ok and bits_ok and occ_ok):
-        raise RuntimeError(f"gather_select disagrees with its plain version: agree={agree} "
-                           f"ties_ok={tie_ok} bits_ok={bits_ok} occupancy_ok={occ_ok}")
-    return dict(id_agreement=agree, bitwise_rows=float((gi == wi).all(1).float().mean()),
-                max_abs_err=err)
+    return dict(bitwise_rows=bitwise, id_agreement=float((gi[:, 3] == wi[:, 3]).float().mean()),
+                bit_identical_rerun=True, max_abs_err=err)
 
 
 def grouped_select_bytes(h, m, cap, slot_bytes, winner_bytes):
@@ -573,7 +575,7 @@ def phase_kernels(hs):
     check = _check_gather_select(grid.table, h, q, m)
     adversarial = {name: _check_gather_select(*args)
                    for name, args in stress_cases(grid.table, h, q, m).items()}
-    say("kernel_check", name="gather_select", **{k: v["id_agreement"] for k, v in adversarial.items()})
+    say("kernel_check", name="gather_select", **{k: v["bitwise_rows"] for k, v in adversarial.items()})
     # Bytes: a slot's xyz and id (rank and occupancy), the winner's normal.
     need = grouped_select_bytes(h, m, cap, slot_bytes=16, winner_bytes=12)
     sharing = k2_row_sharing(h, grid.table_size)
@@ -583,13 +585,14 @@ def phase_kernels(hs):
     say("kernel", name="gather_select", queries=B * N, table=list(grid.table.shape),
         rows_touched=need["rows_touched"], sector_floor_ms=need["sector_floor_ms"],
         row_sharing=sharing, **check, **k2,
-        adversarial_id_agreement={k: v["id_agreement"] for k, v in adversarial.items()})
+        adversarial_bitwise_rows={k: v["bitwise_rows"] for k, v in adversarial.items()})
     results.append(dict(
         name="gather_select", route="cuda",
         source="open3d_slam_private_tpu_torch/csrc/gather_select.cu",
         replaces="open3d_slam_private_tpu/kernels/gather_select_pallas.py:207",
         max_abs_err=check["max_abs_err"], **k2,
-        adversarial_id_agreement={k: v["id_agreement"] for k, v in adversarial.items()}))
+        adversarial_bitwise_rows={k: v["bitwise_rows"] for k, v in adversarial.items()}))
+    save_gather_select_inputs(grid.table, h, q, m)
 
     # K1: one in-round GN linearisation on that round's pairs, at the
     # headline's 8 x 65,536 and at the SLAM step's 1 x 16,384 (odometry and
@@ -2197,6 +2200,75 @@ def k1_normal_eq_side(root):
         launch_floor=floor, shapes=out)
 
 
+GATHER_SELECT_INPUTS = "build/gather_select_inputs.pt"  # the headline round, for --gather-select
+
+
+def _bits_digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+
+
+def save_gather_select_inputs(table, h, q, m):
+    """The headline round's K2 inputs and the digests of K2's and K4's
+    table entry's plain outputs on them (:func:`gather_select_side`)."""
+    from open3d_slam_private_tpu_torch.kernels import gather_select as gsk
+    from open3d_slam_private_tpu_torch.kernels import select as selk
+
+    digests = dict(gather_select=_bits_digest(gsk.gather_select_plain(table, h, q, m)),
+                   rank_select_table=_bits_digest(selk.rank_select_table_plain(table, h, q, m)))
+    os.makedirs(os.path.dirname(GATHER_SELECT_INPUTS), exist_ok=True)
+    torch.save(dict(args=[x.cpu() for x in (table, h, q, m)], digests=digests), GATHER_SELECT_INPUTS)
+
+
+def device_us_by_key(fn, reps=10):
+    """Device microseconds a call of ``fn`` by profiler key (every
+    device-side event of a ``torch.profiler`` session of ``reps`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: event_device_us(e) / reps for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and event_device_us(e) > 0}
+
+
+def gather_select_side(root):
+    """``--side DIR --gather-select``: the checkout at ``DIR``'s K2 and K4's
+    table entry on the headline round the main run saved
+    (``GATHER_SELECT_INPUTS``: 524,288 queries into the 2^16 x 48 table):
+    each output's bits' digest and whether it equals the plain output's
+    (the sides' digests equal when their bits do), device us a call
+    by pass (a profiled session of 10 calls), us a call inside a captured
+    CUDA graph of 20 (:func:`graph_us`) and wrapper ms. To compare, run it
+    once per side, each in its own process, in one call to the card after a
+    full run (parent, change, change, parent)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import open3d_slam_private_tpu_torch
+    from open3d_slam_private_tpu_torch.kernels import gather_select as gsk
+    from open3d_slam_private_tpu_torch.kernels import select as selk
+
+    phase_device()
+    dev = torch.device("cuda", 0)
+    saved = torch.load(GATHER_SELECT_INPUTS)
+    args = [x.to(dev) for x in saved["args"]]
+    out = {}
+    for name, fn in (("gather_select", lambda: gsk.gather_select(*args)),
+                     ("rank_select_table", lambda: selk.rank_select_table(*args))):
+        digest = _bits_digest(fn())
+        per = device_us_by_key(fn)
+        out[name] = dict(digest=digest, bit_equal_to_plain=digest == saved["digests"][name],
+                         device_us=sum(per.values()), device_us_by_kernel=per, graph_us=graph_us(fn),
+                         ms=cuda_ms(fn))
+    say("gather_select_side", root=root, package=os.path.dirname(open3d_slam_private_tpu_torch.__file__),
+        kernels=out)
+
+
 def _counters():
     from open3d_slam_private_tpu_torch.kernels import (
         gather_select,
@@ -2666,6 +2738,8 @@ if __name__ == "__main__":
         moments_side(sys.argv[2])
     elif sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--k1-normal-eq"]:
         k1_normal_eq_side(sys.argv[2])
+    elif sys.argv[1:2] == ["--side"] and sys.argv[3:4] == ["--gather-select"]:
+        gather_select_side(sys.argv[2])
     elif sys.argv[1:2] == ["--side"]:
         compare_side(sys.argv[2])
     else:

@@ -110,9 +110,8 @@ def rank_select_table(table, h, query_xyz, query_mask):
     in ``[0, T)``, ``query_xyz [N, 3]`` float32 and ``query_mask [N]`` bool
     or uint8 -> ``[N, 16]``, the rows read in place. CPU tensors take
     :func:`rank_select_table_plain`; CUDA tensors launch the kernel (counted
-    in ``rank_select_table.launches``; five ``__global__`` functions: K2's
-    count, rowsum, scan, scatter and its rank kernel with K4's contract) or
-    raise. A row index outside ``[0, T)`` is outside the contract (the plain
+    in ``rank_select_table.launches``; K2's memset, count, scan and scatter
+    and its rank kernel with K4's contract) or raise. A row index outside ``[0, T)`` is outside the contract (the plain
     version indexes as PyTorch does; the kernel writes K2's INVALID row)."""
     if table.device.type == "cpu":
         return rank_select_table_plain(table, h, query_xyz, query_mask)

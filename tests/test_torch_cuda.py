@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import gather_select_model as gsm
 from chip_smoke import near_ties, ulps
 from open3d_slam_private_tpu_torch.geometry import se3
 from open3d_slam_private_tpu_torch.kernels import gather_select as tgs
@@ -653,15 +654,16 @@ def test_rank_select_table_kernel_refuses_bad_inputs(rng, cuda_device):
         tsel.rank_select_table(cl.table, h.long(), q, qm)
     with pytest.raises(ValueError, match="shape"):
         tsel.rank_select_table(cl.table[:, :, :4].contiguous(), h, q, qm)
-    # Rows as wide as a block's shared memory stages (605 slots on an H100)
-    # are taken; wider ones are refused before any pass runs.
-    wide = torch.rand((16, 605, 8), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    # Rows whose rank block fits in a block's shared memory (437 slots on an
+    # H100: two stages of a row and 32 records a warp) are taken; wider ones
+    # are refused before any pass runs.
+    wide = torch.rand((16, 437, 8), generator=torch.Generator().manual_seed(3)).to(cuda_device)
     hw = (h % 16).contiguous()
     assert torch.equal(tsel.rank_select_table(wide, hw, q, qm).view(torch.int32),
                        tsel.rank_select_table_plain(wide, hw, q, qm).view(torch.int32))
     before = tsel.rank_select_table.launches
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        tsel.rank_select_table(torch.zeros((16, 606, 8), device=cuda_device), hw, q, qm)
+    with pytest.raises(RuntimeError, match="wider than"):
+        tsel.rank_select_table(torch.zeros((16, 438, 8), device=cuda_device), hw, q, qm)
     assert tsel.rank_select_table.launches == before
     shifted = torch.empty(cl.table.numel() + 1, device=cuda_device)[1:].view(cl.table.shape)
     shifted.copy_(cl.table)  # contiguous, 4 bytes off a 16-byte boundary
@@ -988,31 +990,25 @@ def test_sym_eig_kernel_refuses_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_scratch_growth_inside_capture_raises(rng, cuda_device):
-    """A kernel scratch buffer that would have to grow while a CUDA graph is
-    being captured raises (a graph holds the old buffer by address): K2's
-    per-device row counts and scratch (``kernels/gather_select.py``), the
-    one such buffer left; K1 keeps none."""
-    scene = torch.tensor(_scene(rng), device=cuda_device)
-    mask = torch.ones(scene.shape[0], dtype=torch.bool, device=cuda_device)
-    nrm = torch.nn.functional.normalize(torch.randn(scene.shape, device=cuda_device), dim=-1)
-    cl = tcl.build_cell_list(scene, mask, 0.5, table_size=1 << 12, list_cap=24, normals=nrm)
-    q = scene[:3000] + 0.05 * torch.randn(3000, 3, device=cuda_device)
-    qm = torch.ones(3000, dtype=torch.bool, device=cuda_device)
-    h = tcl.query_hash(cl, q)
-    want = tgs.gather_select(cl.table, h, q, qm)  # sized outside the capture: captures fine
-    saved = tgs._COUNT.pop(cuda_device, None), tgs._SCRATCH.pop(cuda_device, None)
+    """A per-device buffer that would have to be made while a CUDA graph is
+    being captured raises (a graph holds a buffer by address): the index
+    tensor of ``pair_gn.unpack`` (``kernels/pair_gn.py``), the one such
+    buffer left, which K3's output goes through. K1 and K2 keep none."""
+    args = _pairs_k(rng, 2, 512, 4, cuda_device)
+    want = tpg.pair_gn_k(*args)  # made outside the capture: captures fine
+    saved = tpg._SYM_ON.pop(cuda_device, None)
     try:
         graph = torch.cuda.CUDAGraph()
         with pytest.raises(RuntimeError, match="scratch would grow inside a CUDA graph capture"):
             with torch.cuda.graph(graph):
-                tgs.gather_select(cl.table, h, q, qm)
+                tpg.pair_gn_k(*args)
     finally:
-        for cache, buf in zip((tgs._COUNT, tgs._SCRATCH), saved):
-            if buf is not None:
-                cache[cuda_device] = buf
+        if saved is not None:
+            tpg._SYM_ON[cuda_device] = saved
     torch.cuda.synchronize()
-    got = tgs.gather_select(cl.table, h, q, qm)  # the wrapper still works after the refused capture
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    got = tpg.pair_gn_k(*args)  # the wrapper still works after the refused capture
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 def _nan_fills():
@@ -1068,6 +1064,110 @@ def test_captured_pair_gn_survives_larger_calls(rng, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(_k1_rows(got).view(torch.int32), first.view(torch.int32))
     assert _all_nan(fills)
+
+
+@pytest.mark.cuda
+def test_captured_gather_select_survives_larger_calls(rng, cuda_device):
+    """K2 and K4's table entry captured in one CUDA graph at 5,000 queries
+    into a 2^12 x 24 table replay to the eager calls' bits after eager calls
+    at 400,000 queries into a 2^16 x 48 table (larger scratch, more row
+    counts), with every free block of the allocator's small pool then taken
+    by NaN-filled tensors and the graph's outputs set to NaN before the
+    replay; the replay writes nothing into those tensors. (Row counts or
+    scratch kept per device and replaced by larger ones would leave the
+    graph pointing at freed memory, which the NaN tensors now hold.)"""
+    from open3d_slam_private_tpu_torch.kernels import select as tsel
+
+    cl, h, q, qm = _cell_rows(rng, cuda_device)
+    want = [tgs.gather_select(cl.table, h, q, qm), tsel.rank_select_table(cl.table, h, q, qm)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [tgs.gather_select(cl.table, h, q, qm), tsel.rank_select_table(cl.table, h, q, qm)]
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    scene = torch.tensor(_scene(rng, n=60000), device=cuda_device)
+    big = tcl.build_cell_list(scene, torch.ones(scene.shape[0], dtype=torch.bool, device=cuda_device), 0.5,
+                              table_size=1 << 16, list_cap=48)
+    bq = scene[torch.randint(0, scene.shape[0], (400000,), device=cuda_device)]
+    bm = torch.ones(400000, dtype=torch.bool, device=cuda_device)
+    bh = tcl.query_hash(big, bq)
+    outs = [tgs.gather_select(big.table, bh, bq, bm), tsel.rank_select_table(big.table, bh, bq, bm)]
+    torch.cuda.synchronize()
+    assert all(bool((o.view(torch.int32)[:, 3] >= 0).any()) for o in outs)
+    del big, bq, bm, bh, outs, scene
+    fills = _nan_fills()
+    for g in got:
+        g.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert _all_nan(fills)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [24, 48])
+@pytest.mark.parametrize("case,by_coords", gsm.CONTRACTS,
+                         ids=[f"{c}-{'k4_table' if k4 else 'k2'}" for c, k4 in gsm.CONTRACTS])
+def test_grouped_kernels_match_plain_and_model(cuda_device, case, by_coords, cap):
+    """K2 (or K4's table entry) on the CPU model's stress inputs
+    (``tests/gather_select_model.py`` ``stress_inputs``: one row, distinct
+    rows, all masked, an empty row, out-of-range rows in K2's contract,
+    rows of 33 and 65 queries, a table of 3,000 rows, 2,345 queries) equals
+    its plain version on the card and the model bit for bit, twice."""
+    from open3d_slam_private_tpu_torch.kernels import select as tsel
+
+    table, h, q, m = (x.to(cuda_device) for x in gsm.stress_inputs(cap, by_coords)[case])
+    kernel = tsel.rank_select_table if by_coords else tgs.gather_select
+    plain = tsel.rank_select_table_plain if by_coords else tgs.gather_select_plain
+    got = kernel(table, h, q, m).view(torch.int32)
+    assert torch.equal(got, plain(table, h, q, m).view(torch.int32))
+    model, _, _ = gsm.grouped(*(x.cpu().numpy() for x in (table, h, q, m)), by_coords=by_coords)
+    assert np.array_equal(got.cpu().numpy(), model.view(np.int32))
+    # The order of queries within a row varies between runs; the bits do not.
+    assert torch.equal(kernel(table, h, q, m).view(torch.int32), got)
+
+
+@pytest.mark.cuda
+def test_gather_select_at_the_widest_row(rng, cuda_device):
+    """K2 on rows of 437 slots (the widest whose rank block fits on an H100)
+    equals its plain version; 438 slots are refused before any pass."""
+    _, h, q, qm = _cell_rows(rng, cuda_device)
+    wide = torch.rand((16, 437, 8), generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    wide.view(torch.int32)[..., 3] = torch.randint(-1, 1 << 20, (16, 437), device=cuda_device)
+    hw = (h % 16).contiguous()
+    assert torch.equal(tgs.gather_select(wide, hw, q, qm).view(torch.int32),
+                       tgs.gather_select_plain(wide, hw, q, qm).view(torch.int32))
+    before = tgs.gather_select.launches
+    with pytest.raises(RuntimeError, match="wider than"):
+        tgs.gather_select(torch.zeros((16, 438, 8), device=cuda_device), hw, q, qm)
+    assert tgs.gather_select.launches == before
+
+
+@pytest.mark.cuda
+def test_gather_select_launcher_refuses(cuda_device):
+    """The launcher refuses, before any pass, 2^31 queries or more, rows
+    wider than its limit and a plan other than its own (null pointers: a
+    pass that ran would fault); the wrapper's plan refuses 2^31 queries."""
+    from open3d_slam_private_tpu_torch.kernels import _build
+
+    lib = _build.load("gather_select", tgs._LAUNCH_ARGTYPES)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    plan = tgs.k2_plan(1000, 4096, 48)
+
+    def launch(N, cap=48, words=plan.words, blocks=plan.rank_blocks, smem=plan.block_smem):
+        return lib.gather_select_launch(0, 0, 0, 0, N, 4096, cap, 0, words, blocks, smem, 0, 0, stream)
+
+    assert launch(1 << 31) == -3 and launch(-1) == -3 and launch(1000, cap=0) == -3
+    assert launch(1000, cap=438) == -2
+    assert launch(1000, words=plan.words - 1) == -1 and launch(1000, blocks=plan.rank_blocks + 1) == -1
+    assert launch(0, words=tgs.k2_plan(0, 4096, 48).words) == 0  # nothing to do
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="outside"):
+        tgs.k2_plan(1 << 31, 4096, 48)
 
 
 @pytest.mark.cuda
