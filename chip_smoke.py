@@ -46,7 +46,10 @@ profiler device events, and each kernel's device time inside a profiled
 step replay), and the ``SlamPipeline`` again in
 the evaluation protocol's configuration (``tools/run_eval.py``: the
 mapper's direct in-round path, exact trimming, with X-ICP's ternary
-method); the ``Mapper``
+method); the ``SlamPipeline`` with the default ``SlamConfig``, loop closure
+on (pipeline-64k-loop: 228 scans there and back, :func:`loop_drive`; each
+loop-closure attempt's stages timed, one attempt profiled, the last
+pose-graph solve rerun twice for its bits and once on the CPU); the ``Mapper``
 over a 30-scan sequence; a batch of 8 scan-to-map registrations
 (``icp_batch``) with the gather kernel off and on, at knn = 8 (K3), with
 the rank-select kernel (K4's table entry; K4's rows entry, the Pallas
@@ -98,6 +101,7 @@ its K2 and K4's table entry on the headline round the last full run saved
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -259,10 +263,7 @@ def say(phase, **kv):
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi)
@@ -1402,6 +1403,44 @@ def drive(n_scans, step):
     return poses
 
 
+LOOP_TURN_SCANS = 36  # the U-turn
+LOOP_LANE_M = 4.0  # the return lane, to the left of the outbound one
+LOOP_SEED = 1000  # sample_scan seeds of the loop drive: LOOP_SEED + k
+
+
+def loop_drive(n_out=None, step=PIPELINE_STEP_M, n_turn=LOOP_TURN_SCANS, lane=LOOP_LANE_M):
+    """There and back: :func:`drive`'s ``n_out`` scans out, a U-turn to the
+    left over ``n_turn`` scans (the heading eased through half a turn,
+    ``pi (1 - cos(pi k / n_turn)) / 2``, at most 7.8 degrees a scan for 36
+    scans; the speed set so that the turn ends ``lane`` m to the left), and
+    ``n_out`` scans back along the street on that lane, swaying as on the
+    way out."""
+    n_out = PIPELINE_SCANS if n_out is None else n_out
+    poses = drive(n_out, step)
+
+    def pose(p, yaw):
+        T = np.eye(4)
+        T[:3, :3] = exp_se3_np([0, 0, yaw, 0, 0, 0])[:3, :3]
+        T[:3, 3] = p
+        return T
+
+    end = poses[-1]
+    yaw0 = float(np.arctan2(end[1, 0], end[0, 0]))
+    turn = np.pi * (1 - np.cos(np.pi * np.arange(1, n_turn + 1) / n_turn)) / 2
+    mid = np.concatenate([[0.0], turn[:-1]]) / 2 + turn / 2  # each move's mean heading
+    s_turn = lane / np.sum(np.sin(mid))
+    p = end[:3, 3].copy()
+    for a, m in zip(turn, mid):
+        p = p + s_turn * np.array([np.cos(yaw0 + m), np.sin(yaw0 + m), 0.0])
+        poses.append(pose(p, yaw0 + a))
+    yaw = yaw0 + np.pi
+    for k in range(n_out):
+        p = p + step * np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        yaw += np.radians(0.8) * np.sin(2 * np.pi * k / 48)
+        poses.append(pose(p, yaw))
+    return poses
+
+
 def profiled_device_ms(prof):
     """Device milliseconds of a ``torch.profiler`` session (the self time of
     its device-side events: kernels, copies, sets; None if the trace holds
@@ -1604,6 +1643,159 @@ def phase_pipeline(dev, cfg=None, cell="pipeline", min_submaps=2, ate_limits=(0.
         with record_raw_sums(record):
             pipe.process_scan(scans[-1], 0.1 * len(scans))
     return counts, k1_us, summary
+
+
+# pipeline-64k-loop's ATE limits. The JAX twin misses pipeline-64k's 0.05 /
+# 0.15 m on this drive: it reads p50 0.0523 m, max 3.881 m
+# (tests/torch_loop_drive.py jax, on the CPU), its error ramping after the
+# loop closures of the way back. The limits are that reading with a margin
+# for the packages' rounding, set before the phase's first card run.
+LOOP_ATE_LIMITS = (0.07, 5.0)
+LOOP_STAGES = ("normals", "fpfh", "matches", "ransac", "icp", "pose_graph")
+
+
+class LoopStageClock:
+    """``SlamPipeline.stage`` for the loop phase: synchronised host
+    milliseconds of each loop-closure stage, summed until :meth:`take`."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        sync(self.dev)
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync(self.dev)
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+
+    def take(self):
+        ms, self.ms = self.ms, {}
+        return ms
+
+
+def card():
+    """``nvidia-smi``'s name and power limit of the card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_loop(dev, cfg=None, n_out=None, ate_limits=LOOP_ATE_LIMITS, pg_cpu_tol=1e-4):
+    """``SlamPipeline`` with the default ``SlamConfig`` (loop closure on,
+    the production configs; submaps of 131,072 points compacted to 16,384
+    for loop closure, 1,024 RANSAC hypotheses, 16 yaw seeds, a pose graph of
+    128 nodes / 512 edges, so ``auto`` solves by pcg) over
+    :func:`loop_drive` (out, U-turn, back on the other lane). Prints the
+    scan walls without a loop-closure attempt, each attempt's wall split
+    into its stages, the candidates tried and accepted, the pose-graph
+    iterations, the ATE, and one attempt's device time under
+    ``torch.profiler``. Fails without an accepted closure, without an
+    applied increment, on a pose that is not finite, on the ATE, or if the
+    last pose-graph solve, run twice more on the card, differs in a bit
+    (or from the CPU's by more than ``pg_cpu_tol`` m). Returns the launch
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open3d_slam_private_tpu_torch.ops import pointcloud as pc
+    from open3d_slam_private_tpu_torch.slam import place_recognition as pr_mod
+    from open3d_slam_private_tpu_torch.slam import pose_graph as pg_mod
+    from open3d_slam_private_tpu_torch.slam.pipeline import SlamConfig, SlamPipeline
+
+    scene = synth_site(SITE_POINTS)
+    poses = loop_drive(n_out)
+    scans = [pc.from_points(sample_scan(scene, SCAN_POINTS, np.linalg.inv(T), seed=LOOP_SEED + k,
+                                        sensor=T[:3, 3]), capacity=SCAN_POINTS, device=dev)
+             for k, T in enumerate(poses)]
+    pipe = SlamPipeline(cfg or SlamConfig(), device=dev)
+    clock = LoopStageClock(dev)
+    pipe.stage = clock
+    graphs = []
+    build_graph = pipe._pose_graph
+
+    def keep_graph():
+        graphs.append(build_graph())
+        return graphs[-1]
+
+    pipe._pose_graph = keep_graph
+    profiled = {}
+    attempt = pipe._attempt_loop_closures
+
+    def attempt_profiled(idx):
+        """The first attempt with a candidate runs under torch.profiler."""
+        if profiled or not pr_mod.candidate_pairs(pipe.submaps, idx, pipe.cfg.place_recognition):
+            return attempt(idx)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sync(dev)
+            t = time.perf_counter()
+            out = attempt(idx)
+            sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+        ms, top = profiled_device_ms(prof)
+        profiled.update(submap=idx, wall_ms=wall, device_ms=ms, top_device_items=top,
+                        idle_share=None if ms is None else 1.0 - ms / wall)
+        return out
+
+    pipe._attempt_loop_closures = attempt_profiled
+    walls, attempts, est = [], [], []
+    reset_counts()
+    for k, scan in enumerate(scans):
+        sync(dev)
+        t = time.perf_counter()
+        stats = pipe.process_scan(scan, 0.1 * k)
+        sync(dev)
+        wall = (time.perf_counter() - t) * 1e3
+        est.append(pipe.pose)
+        if not np.isfinite(pipe.pose).all():
+            raise RuntimeError(f"pipeline-64k-loop pose {k} is not finite: {stats}")
+        stage_ms = clock.take()
+        if "loop_closures" in stats:
+            rec = pipe.loop_closure_trace[-1]
+            attempts.append(dict(
+                scan=k, wall_ms=wall, profiled=rec["submap"] == profiled.get("submap"),
+                stages_ms={s: stage_ms.get(s, 0.0) for s in LOOP_STAGES}, submap=rec["submap"],
+                tried=rec["tried"], accepted=rec["accepted"], gn_iterations=rec.get("gn_iterations"),
+                cg_iterations=rec.get("cg_iterations"), increments=rec.get("increments", 0),
+                max_increment_m=rec.get("max_increment_m", 0.0)))
+        elif k:  # the first scan only seeds the map
+            walls.append(wall)
+    counts = read_counts()
+
+    truth = [np.linalg.inv(poses[0]) @ T for T in poses]
+    ate = np.array([np.linalg.norm(e[:3, 3] - t[:3, 3]) for e, t in zip(est, truth)])[1:]
+    p50, amax = float(np.median(ate)), float(ate.max())
+    accepted = sum(len(a["accepted"]) for a in attempts)
+    applied = sum(a["increments"] for a in attempts)
+    determinism = None
+    if graphs:
+        g = graphs[-1]
+        runs = [pg_mod.optimize(g, pipe.cfg.pose_graph).poses for _ in range(2)]
+        g_cpu = pg_mod.PoseGraph(**{f.name: getattr(g, f.name).cpu() for f in dataclasses.fields(g)})
+        on_cpu = pg_mod.optimize(g_cpu, pipe.cfg.pose_graph).poses
+        determinism = dict(nodes=int(g.node_mask.sum()), edges=int(g.edge_mask.sum()),
+                           loop_edges=int((g.edge_mask & g.edge_is_loop).sum()),
+                           bit_equal=bool(torch.equal(runs[0], runs[1])),
+                           cpu_max_abs_m=float((runs[0][:, :3, 3].cpu() - on_cpu[:, :3, 3]).abs().max()))
+    say("pipeline", cell="pipeline-64k-loop", card=card(), depth=f"{len(poses)} scans, not cut",
+        ate_limits_m=list(ate_limits), scans=len(poses), raw_points=SCAN_POINTS,
+        ate_p50_m=p50, ate_max_m=amax, submaps=len(pipe.submaps),
+        scan_ms_p50=float(np.median(walls)), scan_ms_p90=float(np.percentile(walls, 90)),
+        scans_without_attempt=len(walls), attempts=attempts,
+        candidates_tried=sum(len(a["tried"]) for a in attempts), closures_accepted=accepted,
+        increments_applied=applied, profiled_attempt=profiled, pose_graph_determinism=determinism,
+        launches=counts)
+    if not accepted or not applied:
+        raise RuntimeError(f"pipeline-64k-loop: {accepted} closures accepted, {applied} increments applied")
+    if not (p50 <= ate_limits[0] and amax <= ate_limits[1]):
+        raise RuntimeError(f"pipeline-64k-loop trajectory error too large: p50 {p50} m, max {amax} m "
+                           f"(limits {ate_limits})")
+    if not determinism["bit_equal"] or determinism["cpu_max_abs_m"] > pg_cpu_tol:
+        raise RuntimeError(f"pipeline-64k-loop: the pose-graph solve is not reproducible: {determinism}")
+    if counts["normal_eq"] <= 0 or counts["pair_gn"] <= 0:
+        raise RuntimeError(f"pipeline-64k-loop missed a kernel of its path: {counts}")
+    return counts
 
 
 REALTIME_MODES = (("paced", 1), ("throughput", 8))
@@ -2691,7 +2883,7 @@ def main():
         motion_compensation="off: the drive's scans are each taken at one instant",
         depth=f"{PIPELINE_SCANS} scans, not cut")
     paths = dict(pipeline=pipeline_counts, realtime=realtime_counts, pipeline_eval=eval_counts,
-                 mapper=phase_mapper(dev))
+                 pipeline_loop=phase_loop(dev), mapper=phase_mapper(dev))
     paths.update({f"headline_{leg}": c for leg, c in phase_headline(hs).items()})
     paths["gicp_b8"] = phase_gicp(hs)
     paths.update({f"register_pair_{m}": c for m, c in phase_register_pair(hs).items()})

@@ -101,3 +101,48 @@ def rt_state_from_jax(state, device=None):
         bank=submap_state(bank.cloud.xyz, bank.cloud.mask, bank.pose, bank.num_scans, device),
         scans_in_active=tensor(state.scans_in_active, device, torch.int32),
     )
+
+
+def pose_graph(graph, device=None):
+    """The port's ``slam.pose_graph.PoseGraph`` from a JAX ``PoseGraph``."""
+    from open3d_slam_private_tpu_torch.slam.pose_graph import PoseGraph
+
+    dtypes = dict(poses=torch.float32, node_mask=torch.bool, edge_i=torch.int32, edge_j=torch.int32,
+                  edge_T=torch.float32, edge_info=torch.float32, edge_is_loop=torch.bool,
+                  edge_mask=torch.bool)
+    return PoseGraph(**{k: tensor(getattr(graph, k), device, dt) for k, dt in dtypes.items()})
+
+
+def loop_constraints(constraints):
+    """The port's ``LoopClosureConstraint`` list from the JAX package's
+    (host numpy fields, copied)."""
+    from open3d_slam_private_tpu_torch.slam.place_recognition import LoopClosureConstraint
+
+    return [LoopClosureConstraint(
+        source_idx=int(c.source_idx), target_idx=int(c.target_idx),
+        T_target_source=np.array(c.T_target_source, np.float64), overlap=float(c.overlap),
+        residual=float(c.residual), information=np.array(c.information, np.float64))
+        for c in constraints]
+
+
+def submap_collection(collection, cfg=None, device=None):
+    """The port's ``SubmapCollection`` from a JAX one: its config (or
+    ``cfg``), each submap's cloud, pose, scan count, anchor, parent and
+    finished flag, the adjacency, the active index, the finished queue and
+    the cadence state."""
+    from open3d_slam_private_tpu_torch.slam import submap_collection as sc
+
+    out = sc.SubmapCollection(cfg or config(sc.SubmapCollectionConfig, collection.cfg), device=device)
+    for e in collection.submaps:
+        cloud = e.state.cloud
+        out.submaps.append(sc.SubmapEntry(
+            state=submap_state(cloud.xyz, cloud.mask, e.state.pose, e.state.num_scans, out.device),
+            anchor=np.array(e.anchor, np.float64), parent=e.parent, finished=bool(e.finished)))
+    for i, nbs in collection.adjacency._adj.items():
+        for j in nbs:
+            out.adjacency.add_edge(i, j)
+    out.active_idx = collection.active_idx
+    out.finished_queue = list(collection.finished_queue)
+    out._scans_in_active = collection._scans_in_active
+    out._force_new_submap = collection._force_new_submap
+    return out

@@ -21,6 +21,7 @@ import torch
 
 from open3d_slam_private_tpu_torch.geometry import se3
 from open3d_slam_private_tpu_torch.kernels.sym_eig import sym_eig
+from open3d_slam_private_tpu_torch.ops.normals import _det3
 
 
 def point_to_plane_normal_equations_bc(src_xyz, ref_xyz, ref_normals, weights):
@@ -97,6 +98,29 @@ def solve_symmetric_indefinite(M: torch.Tensor, rhs: torch.Tensor, rcond: float 
     survives: in float64 the solve is the exact one that the JAX twin's
     float32 solve approximates."""
     return solve_normal_equations(M.double(), rhs.double(), rcond).to(M.dtype)
+
+
+def point_to_point_transform(src_xyz: torch.Tensor, ref_xyz: torch.Tensor,
+                             weights: torch.Tensor) -> torch.Tensor:
+    """Weighted Kabsch alignment ``src -> ref`` over the point axis:
+    ``[..., P, 3]`` points and ``[..., P]`` weights -> ``[..., 4, 4]``. The
+    cross-covariance is a sum of elementwise products; its SVD
+    (``torch.linalg.svd`` on the 3x3) gives ``R = V diag(1, 1, det(V U^T))
+    U^T`` and the translation comes from the weighted centroids. A
+    rank-deficient cross-covariance leaves U and V, and so R, to the SVD."""
+    w = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-12)
+    cp = (w[..., None] * src_xyz).sum(-2)
+    cq = (w[..., None] * ref_xyz).sum(-2)
+    P = src_xyz - cp[..., None, :]
+    Q = ref_xyz - cq[..., None, :]
+    H = ((w[..., None] * P)[..., :, None] * Q[..., None, :]).sum(-3)
+    U, _, Vh = torch.linalg.svd(H)
+    V = Vh.transpose(-1, -2)
+    d = _det3(V) * _det3(U)  # det(V U^T), +-1
+    V = torch.cat([V[..., :2], V[..., 2:] * d[..., None, None]], -1)
+    R = esum("ik,jk->ij", V, U)
+    t = cq - esum("ij,j->i", R, cp)
+    return se3._rt_to_matrix(R, t)
 
 
 def delta_transform_from_x(x: torch.Tensor) -> torch.Tensor:

@@ -232,6 +232,13 @@ def _sq3(d: torch.Tensor) -> torch.Tensor:
     return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
+def sq3_fma(d: torch.Tensor) -> torch.Tensor:
+    """``fma(dz, dz, fma(dy, dy, dx*dx))``: how XLA's CPU backend sums the
+    squared distance in the JAX twin's k > 1 grid match of the FPFH step."""
+    x, y, z = d.unbind(-1)
+    return fma32(z, z, fma32(y, y, x * x))
+
+
 _LANES = 8  # the vector width of XLA's CPU loop over a bucket's slots
 
 
@@ -331,15 +338,17 @@ def gather_candidates(grid: GridHash, query_xyz: torch.Tensor, query_mask: torch
 
 
 def grid_match(
-    grid: GridHash, query_xyz: torch.Tensor, query_mask: torch.Tensor, k: int = 1, max_dist=None
+    grid: GridHash, query_xyz: torch.Tensor, query_mask: torch.Tensor, k: int = 1, max_dist=None,
+    sq=_sq3,
 ) -> MatchResult:
     """The ``k`` nearest table points within ``max_dist`` (default: half
     the cell size) among the 2x2x2 block's buckets, payloads inlined. Ties
     go to the earlier block, then the lower slot, as in the JAX twin's
-    block-by-block merge."""
+    block-by-block merge. ``sq`` sums a squared distance (:func:`sq3_fma`:
+    in the FPFH step's rounding)."""
     radius = grid.cell_size * 0.5 if max_dist is None else max_dist
     rows, valid = gather_candidates(grid, query_xyz, query_mask)
-    return match_from_candidates(rows, valid, query_xyz, query_mask, radius, k)
+    return match_from_candidates(rows, valid, query_xyz, query_mask, radius, k, sq=sq)
 
 
 def match_from_candidates(
@@ -349,6 +358,7 @@ def match_from_candidates(
     query_mask: torch.Tensor,
     max_dist,
     k: int = 1,
+    sq=_sq3,
 ) -> MatchResult:
     """Re-rank gathered candidates ``rows [..., M, 8]`` with ``valid
     [..., M]`` for queries ``[..., 3]`` -> the ``k`` nearest, ascending,
@@ -358,7 +368,7 @@ def match_from_candidates(
     zeroed xyz / normals."""
     radius = f32(max_dist, query_xyz.device)
     max_d2 = radius * radius
-    d2 = _sq3(rows[..., :3] - query_xyz[..., None, :])
+    d2 = sq(rows[..., :3] - query_xyz[..., None, :])
     d2 = torch.where(valid, d2, INF)
     if k == 1:
         best_d, _ = d2.min(-1, keepdim=True)

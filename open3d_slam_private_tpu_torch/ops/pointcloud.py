@@ -108,6 +108,20 @@ def stack(batches) -> PointBatch:
     )
 
 
+def compact(batch: PointBatch, capacity: int) -> PointBatch:
+    """Valid points first, in their order, then the batch cut to
+    ``capacity`` points (a stable partition; padded slots at PAD_COORD). A
+    ``capacity`` above the batch's keeps the batch's, as the JAX twin."""
+    n = batch.capacity
+    idx = torch.arange(n, device=batch.device)
+    key = torch.where(batch.mask, 0, n + 1) + idx  # (invalid, index), unique
+    order = torch.argsort(key, dim=-1)[..., :capacity]
+    take = lambda v: torch.take_along_dim(v, order[..., None], dim=-2)  # noqa: E731
+    mask = torch.take_along_dim(batch.mask, order, dim=-1)
+    xyz = torch.where(mask[..., None], take(batch.xyz), PAD_COORD)
+    return PointBatch(xyz=xyz, mask=mask, extras={k: take(v) for k, v in batch.extras.items()})
+
+
 _SUM_WINDOW = 32
 
 

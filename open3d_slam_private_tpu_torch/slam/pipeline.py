@@ -1,19 +1,22 @@
-"""The online SLAM step: odometry -> mapper -> submap collection.
+"""The online SLAM step: odometry -> mapper -> submap collection -> loop
+closure -> pose graph.
 
-Twin of ``open3d_slam_private_tpu/slam/pipeline.py`` with loop closure off.
+Twin of ``open3d_slam_private_tpu/slam/pipeline.py``.
 :meth:`SlamPipeline.process_scan` runs, per scan: the IMU attitude boot,
 out-of-order handling (a stale scan propagates the pose by the odometry
 motion and is not registered), optional constant-velocity undistortion,
 LiDAR odometry (or an external odometry pose), scan-to-map X-ICP against
 the active submap, and insertion into the submap collection, which creates
-and switches submaps. Stepped serially it is deterministic.
+and switches submaps. With ``loop_closure_enabled`` (the default) a submap
+that has just finished is checked against its candidates
+(``slam/place_recognition.py``); accepted constraints go into a pose graph
+of the submap anchors (``slam/pose_graph.py``), whose increments move the
+submaps and the live pose. Stepped serially it is deterministic.
+:meth:`SlamPipeline.relocalize` places a scan in the map globally.
 :class:`OnlineSlamRunner` feeds it from a worker thread.
 
-Not ported, and refused by name: loop closure (``loop_closure_enabled``:
-place recognition and the pose graph), the dense map
-(``build_dense_map``) and :meth:`SlamPipeline.relocalize`. So the config
-has no ``place_recognition`` and ``pose_graph`` fields, nor the dense map's
-and pose graph's sizes.
+Not ported, and refused by name: the dense map (``build_dense_map``); so
+the config has no ``dense_map_voxel`` and ``dense_map_capacity`` fields.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,7 +33,10 @@ from open3d_slam_private_tpu_torch.device import resolve
 from open3d_slam_private_tpu_torch.geometry import se3
 from open3d_slam_private_tpu_torch.ops import pointcloud as pc
 from open3d_slam_private_tpu_torch.slam import mapper as mapper_mod
+from open3d_slam_private_tpu_torch.models import icp as icp_mod
 from open3d_slam_private_tpu_torch.slam import motion_compensation as mc_mod
+from open3d_slam_private_tpu_torch.slam import place_recognition as pr
+from open3d_slam_private_tpu_torch.slam import pose_graph as pg
 from open3d_slam_private_tpu_torch.slam.imu import ImuBuffer
 from open3d_slam_private_tpu_torch.slam.mapper import (
     MapperConfig,
@@ -60,13 +66,16 @@ class MotionCompensationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SlamConfig:
-    """The JAX twin's fields without loop closure's and the dense map's
-    settings; ``loop_closure_enabled`` and ``build_dense_map`` keep the
-    twin's defaults and must be False (see :func:`check_config`)."""
+    """The JAX twin's fields and defaults without the dense map's voxel and
+    capacity; ``build_dense_map`` must stay False (see :func:`check_config`)."""
 
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
     mapper: MapperConfig = dataclasses.field(default_factory=MapperConfig)
     submaps: SubmapCollectionConfig = dataclasses.field(default_factory=SubmapCollectionConfig)
+    place_recognition: pr.PlaceRecognitionConfig = dataclasses.field(
+        default_factory=pr.PlaceRecognitionConfig
+    )
+    pose_graph: pg.PoseGraphConfig = dataclasses.field(default_factory=pg.PoseGraphConfig)
     use_external_odometry: bool = False
     loop_closure_enabled: bool = True
     motion_compensation: MotionCompensationConfig = dataclasses.field(
@@ -76,18 +85,17 @@ class SlamConfig:
     # with an identity rotation (an explicit set_initial_transform wins).
     use_imu_attitude_init: bool = True
     build_dense_map: bool = False
+    node_capacity: int = 128  # pose-graph nodes (one a submap)
+    edge_capacity: int = 512
 
 
 def check_config(cfg: SlamConfig) -> None:
     """Raise NotImplementedError naming a field outside the ported path."""
-    if cfg.loop_closure_enabled:
-        raise NotImplementedError(
-            "SlamConfig.loop_closure_enabled=True is not ported (place recognition and the "
-            "pose graph are not); pass loop_closure_enabled=False"
-        )
     if cfg.build_dense_map:
         raise NotImplementedError("SlamConfig.build_dense_map=True is not ported (no dense map)")
     mapper_mod.check_config(cfg.mapper)
+    icp_mod.check_config(cfg.place_recognition.icp)
+    pg.check_config(cfg.pose_graph)
 
 
 def _log_se3(T: np.ndarray) -> np.ndarray:
@@ -120,6 +128,14 @@ class SlamPipeline:
         self._scans_since_reinit = 0
         self._last_insert_pose: Optional[np.ndarray] = None
         self._initialized = False
+        # Pose-graph bookkeeping: one node a submap (its anchor).
+        self._loop_constraints: List[pr.LoopClosureConstraint] = []
+        # Loop-closure tracing: ``stage``, if set, is a callable name ->
+        # context manager around each stage of an attempt (normals, fpfh,
+        # matches, ransac, icp, pose_graph); each attempt appends a record
+        # to ``loop_closure_trace``.
+        self.stage = None
+        self.loop_closure_trace: List[dict] = []
         self._scan_count = 0
         self.stats: List[dict] = []
         self.imu_buffer = ImuBuffer()
@@ -213,6 +229,11 @@ class SlamPipeline:
 
         stats = self._mapping_step(scan, odom_motion)
         self.map_pose_buffer.push(time, self._map_pose)
+
+        if cfg.loop_closure_enabled:
+            finished = self.submaps.pop_finished()
+            if finished is not None:
+                stats["loop_closures"] = self._attempt_loop_closures(finished)
         self._scan_count += 1
         self.stats.append(stats)
         return stats
@@ -281,6 +302,58 @@ class SlamPipeline:
         self._ref_center = np.asarray(center, np.float64).copy()
         self._scans_since_reinit = 0
 
+    def _attempt_loop_closures(self, finished_idx: int) -> int:
+        tried: List[int] = []
+        constraints = pr.build_loop_closure_constraints(self.submaps, finished_idx,
+                                                        cfg=self.cfg.place_recognition,
+                                                        stages=self.stage, tried=tried)
+        record = dict(submap=finished_idx, tried=tried, accepted=[c.target_idx for c in constraints])
+        self.loop_closure_trace.append(record)
+        if not constraints:
+            return 0
+        self._loop_constraints.extend(constraints)
+        record.update(self._optimize_pose_graph())
+        return len(constraints)
+
+    def _pose_graph(self) -> pg.PoseGraph:
+        """Nodes at the submap anchors, odometry edges from each submap's
+        parent, loop edges from the accepted constraints (float32, as the
+        twin's builder takes them)."""
+        builder = pg.PoseGraphBuilder(self.cfg.node_capacity, self.cfg.edge_capacity)
+        for e in self.submaps.submaps:
+            builder.add_node(e.anchor)
+        for i, e in enumerate(self.submaps.submaps):
+            if e.parent is not None:
+                builder.add_edge(e.parent, i, np.linalg.inv(self.submaps.submaps[e.parent].anchor) @ e.anchor)
+        for c in self._loop_constraints:
+            builder.add_edge(c.target_idx, c.source_idx, c.T_target_source, info=c.information,
+                             is_loop=True)
+        return builder.build(self.device)
+
+    def _optimize_pose_graph(self) -> dict:
+        """Solve the pose graph and apply its increments: each submap moves
+        by its own (or its parent's), the live pose by the active submap's.
+        Returns the solve's iteration counts and the increments' count and
+        largest translation."""
+        solve: dict = {}
+        with pr.stage_fn(self.stage)("pose_graph"):
+            out = pg.optimize(self._pose_graph(), self.cfg.pose_graph, stats=solve)
+            new_poses = out.poses.double().cpu().numpy()
+        increments: Dict[int, np.ndarray] = {}
+        for i, e in enumerate(self.submaps.submaps):
+            inc = new_poses[i] @ np.linalg.inv(e.anchor)
+            if not np.allclose(inc, np.eye(4), atol=1e-6):
+                increments[i] = inc
+        if increments:
+            active_inc = increments.get(self.submaps.active_idx, np.eye(4))
+            self.submaps.apply_pose_updates(increments)
+            self._map_pose = active_inc @ self._map_pose
+            self._ref_submap_idx = -1  # rebuild the reference
+        solve["increments"] = len(increments)
+        solve["max_increment_m"] = max((float(np.linalg.norm(T[:3, 3])) for T in increments.values()),
+                                       default=0.0)
+        return solve
+
     def assembled_map(self) -> np.ndarray:
         return self.submaps.map_points()
 
@@ -299,9 +372,45 @@ class SlamPipeline:
 
     def relocalize(self, scan: pc.PointBatch, hint_pose: Optional[np.ndarray] = None,
                    search_radius: float = 10.0) -> Optional[np.ndarray]:
-        raise NotImplementedError(
-            "SlamPipeline.relocalize is not ported (it needs place recognition)"
+        """Global (re)localisation of a scan against the assembled map: the
+        FPFH-RANSAC pose and a yaw x translation sweep around ``hint_pose``
+        (identity if None), refined and gated as a loop closure with
+        stricter gates, then polished against the active submap at the
+        mapper's matching radius. Sets the live pose and returns it on
+        success; leaves the state as it was and returns None otherwise."""
+        mcfg = self.cfg.mapper
+        prcfg = self.cfg.place_recognition
+        processed = process_scan_for_matching(scan.to(self.device), mcfg)
+        map_pts = self.assembled_map()
+        if len(map_pts) == 0:
+            return None
+        target = pc.from_points(
+            map_pts, capacity=max(1 << int(np.ceil(np.log2(max(len(map_pts), 2)))), 1024), device=self.device
         )
+        hint = np.eye(4) if hint_pose is None else np.asarray(hint_pose, np.float64)
+        # Stricter gates than a loop closure's: a wrong global pose costs
+        # more than a skipped attempt.
+        prcfg = dataclasses.replace(
+            prcfg, num_xy_offsets=5, xy_offset=search_radius / 2.0,
+            min_overlap=max(prcfg.min_overlap, 0.45), max_residual=min(prcfg.max_residual, 0.2),
+        )
+        got = pr.verify_candidate(processed, target, hint, prcfg)
+        if got is None:
+            return None
+        T, _overlap, _residual = got
+        # The polish is checked before any state changes.
+        polish_ref = build_map_reference(self.submaps.active.state.cloud, self._T(T[:3, 3]), mcfg)
+        res = scan_to_map_step(processed, polish_ref, self._T(T), mcfg)
+        transform = res.transform.double().cpu().numpy()
+        if not (np.isfinite(transform).all() and float(res.overlap_ratio) > 0.2):
+            return None
+        self._map_pose = transform
+        self._ref = polish_ref
+        self._ref_submap_idx = self.submaps.active_idx
+        self._ref_center = np.asarray(T[:3, 3], np.float64).copy()
+        self._scans_since_reinit = 0
+        self._initialized = True
+        return self._map_pose.copy()
 
 
 class OnlineSlamRunner:

@@ -27,9 +27,10 @@ fetches in one copy. Nothing reads the device between dispatch and poll
 that could hold an active problem, under the done masks). A failed capture
 raises; there is no eager path on the card.
 
-Not ported, and refused by name (``pipeline.check_config``): loop closure
-(the worker thread, place recognition, the pose graph and its increments)
-and the dense map.
+Not ported, and refused by name: loop closure (the worker thread that runs
+place recognition and the pose graph beside the step, and its increments;
+``SlamPipeline`` runs them inline) and the dense map
+(``pipeline.check_config``).
 """
 
 from __future__ import annotations
@@ -488,6 +489,10 @@ class RealtimePipeline:
         if chunk_size > 1 and h2d_mode == "packed":
             raise ValueError("chunk_size > 1 currently requires h2d_mode='pytree'")
         self.cfg = cfg or SlamConfig()
+        if self.cfg.loop_closure_enabled:
+            raise NotImplementedError(
+                "SlamConfig.loop_closure_enabled=True is not ported for RealtimePipeline (its "
+                "loop-closure worker thread is not); pass loop_closure_enabled=False")
         check_config(self.cfg)
         self.device = resolve(device)
         self.async_rebuild = bool(async_rebuild)

@@ -1385,3 +1385,67 @@ def test_realtime_poses_survive_large_fused_calls(rng, cuda_device):
     assert np.array_equal(poses.view(np.uint8), poses2.view(np.uint8))
     assert all((a is None and b is None) or np.array_equal(a.view(np.uint8), b.view(np.uint8))
                for a, b in zip(stats, stats2))
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_matches_the_cpu(cuda_device):
+    """JAX's threefry words and the RANSAC draw: bit-equal on the card and
+    on the CPU (chunked over rows on the card)."""
+    from open3d_slam_private_tpu_torch.ops import prng
+
+    for seed in (0, 7, 2 ** 32 - 1):
+        cpu = prng.bits(seed, (3, 1000, 33))
+        assert torch.equal(prng.bits(seed, (3, 1000, 33), device=cuda_device, chunk=4099).cpu(), cpu)
+    mask = torch.rand(16384, generator=torch.Generator().manual_seed(0)) < 0.3
+    cpu = prng.masked_categorical(0, mask, 1024, 3)
+    assert torch.equal(prng.masked_categorical(0, mask.to(cuda_device), 1024, 3, chunk_rows=96).cpu(), cpu)
+
+
+def _loop_pose_graph(n=128, loops=24, seed=0):
+    """A drifting loop of ``n`` nodes with ``loops`` loop closures."""
+    from open3d_slam_private_tpu_torch.slam import pose_graph as tpgr
+
+    rng = np.random.default_rng(seed)
+    step = se3.exp_se3(torch.tensor([0, 0, 2 * np.pi / n, 0.4, 0, 0], dtype=torch.float32)).double().numpy()
+    drift = se3.exp_se3(torch.tensor([0, 0, 0.02, 0.02, 0, 0], dtype=torch.float32)).double().numpy()
+    gt = [np.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step)
+    b = tpgr.PoseGraphBuilder(n, 512)
+    est = np.eye(4)
+    b.add_node(est)
+    for i in range(1, n):
+        est = est @ step @ drift
+        b.add_node(est)
+        b.add_edge(i - 1, i, step @ drift)
+    for _ in range(loops):
+        i = int(rng.integers(0, n // 2))
+        j = (i + n // 2) % n
+        b.add_edge(i, j, np.linalg.inv(gt[i]) @ gt[j], info=np.eye(6) * 10.0, is_loop=True)
+    return b
+
+
+@pytest.mark.cuda
+def test_pose_graph_on_the_card_is_reproducible(cuda_device):
+    """The default config's solver at the production capacity (128 nodes,
+    pcg): two solves on the card give the same bits, within 1e-4 m of the
+    CPU's."""
+    from open3d_slam_private_tpu_torch.slam import pose_graph as tpgr
+
+    b = _loop_pose_graph()
+    cfg = tpgr.PoseGraphConfig()
+    stats = {}
+    runs = [tpgr.optimize(b.build(cuda_device), cfg, stats=stats).poses for _ in range(2)]
+    cpu = tpgr.optimize(b.build("cpu"), cfg).poses
+    assert stats["cg_iterations"] and torch.equal(runs[0], runs[1])
+    assert (runs[0][:, :3, 3].cpu() - cpu[:, :3, 3]).abs().max() < 1e-4
+    assert float(tpgr.chi2(tpgr.PoseGraph(**{**b.build("cpu").__dict__, "poses": cpu}))) \
+        < float(tpgr.chi2(b.build("cpu")))
+
+
+@pytest.mark.cuda
+def test_default_slam_pipeline_constructs_on_the_card(cuda_device):
+    from open3d_slam_private_tpu_torch.slam.pipeline import SlamConfig, SlamPipeline
+
+    pipe = SlamPipeline(SlamConfig(), device=cuda_device)
+    assert pipe.cfg.loop_closure_enabled and pipe.submaps.device.type == "cuda"

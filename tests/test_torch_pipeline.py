@@ -129,30 +129,36 @@ def test_slam_pipeline_matches_jax(seed):
 
 
 def test_slam_config_refuses_unported_paths():
-    with pytest.raises(NotImplementedError, match="loop_closure_enabled"):
-        tpipe.SlamPipeline(tpipe.SlamConfig(), device="cpu")
+    """The default config (loop closure on) constructs and ``relocalize``
+    runs; the dense map is still refused by name."""
+    pipe = tpipe.SlamPipeline(tpipe.SlamConfig(), device="cpu")
+    assert pipe.cfg.loop_closure_enabled
     with pytest.raises(NotImplementedError, match="build_dense_map"):
-        tpipe.SlamPipeline(tpipe.SlamConfig(loop_closure_enabled=False, build_dense_map=True),
-                           device="cpu")
-    pipe = tpipe.SlamPipeline(tpipe.SlamConfig(loop_closure_enabled=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="relocalize"):
-        pipe.relocalize(None)
+        tpipe.SlamPipeline(tpipe.SlamConfig(build_dense_map=True), device="cpu")
+    scan = interop.point_batch(np.zeros((4, 3), np.float32), np.ones(4, bool))
+    assert pipe.relocalize(scan) is None  # an empty map: nothing to place the scan in
+    assert np.array_equal(pipe.pose, np.eye(4)) and not pipe._initialized
 
 
 def test_slam_configs_mirror_the_jax_twins():
-    """Same fields as the JAX configs (the SLAM config without loop
-    closure's and the dense map's settings), same defaults."""
+    """Same fields as the JAX configs (the SLAM config without the dense
+    map's voxel and capacity), same defaults, nested configs included."""
+    from open3d_slam_private_tpu.slam import place_recognition as jpr
+    from open3d_slam_private_tpu.slam import pose_graph as jpg
     from open3d_slam_private_tpu_torch.slam import odometry as todo
+    from open3d_slam_private_tpu_torch.slam import place_recognition as tpr
+    from open3d_slam_private_tpu_torch.slam import pose_graph as tpg_
     from open3d_slam_private_tpu_torch.slam import submap_collection as tsc
 
     for jcls, tcls in ((jodo.OdometryConfig, todo.OdometryConfig),
                        (jsc.SubmapCollectionConfig, tsc.SubmapCollectionConfig),
-                       (jpipe.MotionCompensationConfig, tpipe.MotionCompensationConfig)):
+                       (jpipe.MotionCompensationConfig, tpipe.MotionCompensationConfig),
+                       (jpr.PlaceRecognitionConfig, tpr.PlaceRecognitionConfig),
+                       (jpg.PoseGraphConfig, tpg_.PoseGraphConfig)):
         assert [f.name for f in dataclasses.fields(jcls)] == [f.name for f in dataclasses.fields(tcls)]
         assert dataclasses.asdict(interop.config(tcls, jcls())) == dataclasses.asdict(jcls())
         assert interop.config(tcls, jcls()) == tcls()
-    left_out = {"place_recognition", "pose_graph", "dense_map_voxel", "dense_map_capacity",
-                "node_capacity", "edge_capacity"}
+    left_out = {"dense_map_voxel", "dense_map_capacity"}
     assert [f.name for f in dataclasses.fields(tpipe.SlamConfig)] == [
         f.name for f in dataclasses.fields(jpipe.SlamConfig) if f.name not in left_out]
     want = {k: v for k, v in dataclasses.asdict(jpipe.SlamConfig()).items() if k not in left_out}
