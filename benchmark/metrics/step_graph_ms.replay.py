@@ -1,0 +1,11 @@
+"""Median device milliseconds of a step-graph replay (CUDA events around
+each replay), replay cells."""
+
+import numpy as np
+
+
+def read(obs):
+    v = obs.get("step_graph_ms")
+    if obs.get("mode") != "replay" or not v:
+        return None
+    return float(np.median(v))
